@@ -1,0 +1,62 @@
+"""Frame-index and image-sequence helpers
+(reference: basicsr/data/data_util.py), the counterparts of
+``edvr_tpu/data/data_util.py``. Image sequences here are (t, c, h, w)
+float32 RGB [0, 1] tensors, as in the reference; ``cv2`` is imported only
+where images are read.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from edvr_tpu_torch.utils import img2tensor, scandir
+
+
+def read_img_seq(path) -> torch.Tensor:
+    """Read an image folder (or explicit path list) as a (t, c, h, w) RGB
+    float32 tensor (reference: data_util.py:11-32)."""
+    import cv2
+    frame_paths = path if isinstance(path, list) else sorted(
+        scandir(path, full_path=True))
+    frames = []
+    for p in frame_paths:
+        img = cv2.imread(p)
+        if img is None:
+            raise IOError(f'cannot read image {p}')
+        frames.append(img.astype(np.float32) / 255.)
+    return torch.stack(img2tensor(frames, bgr2rgb=True), 0)
+
+
+def generate_frame_indices(crt_idx: int, max_frame_num: int, num_frames: int,
+                           padding: str = 'reflection'):
+    """Temporal window indices around ``crt_idx`` with border padding
+    (reference: data_util.py:35-88).
+
+    Out-of-range positions are remapped per mode:
+      * replicate:          ... 0 0 | 0 1 2 ... n | n n ...
+      * reflection:         ... 2 1 | 0 1 2 ... n | n-1 n-2 ...
+      * reflection_circle:  reflect about the window's own edge frames
+      * circle:             wrap by the window length
+    """
+    if num_frames % 2 != 1:
+        raise ValueError(f'window length must be odd, got {num_frames}')
+    if padding not in ('replicate', 'reflection', 'reflection_circle',
+                       'circle'):
+        raise ValueError(f'unknown padding mode {padding!r}')
+    last = max_frame_num - 1
+    half = num_frames // 2
+
+    def remap(i):
+        if 0 <= i <= last:
+            return i
+        if padding == 'replicate':
+            return min(max(i, 0), last)
+        if padding == 'reflection':
+            return -i if i < 0 else 2 * last - i
+        if padding == 'reflection_circle':
+            return (crt_idx + half - i if i < 0
+                    else crt_idx - half - (i - last))
+        return i + num_frames if i < 0 else i - num_frames  # circle
+
+    return [remap(i) for i in range(crt_idx - half, crt_idx + half + 1)]

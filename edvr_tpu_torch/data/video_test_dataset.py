@@ -1,0 +1,98 @@
+"""Video test dataset (reference: basicsr/data/video_test_dataset.py:11-148),
+the counterpart of ``edvr_tpu/data/video_test_dataset.py::VideoTestDataset``:
+per-frame items with folder/idx/border bookkeeping for Vid4, REDS4 and
+REDSofficial. With ``cache_data`` every clip is held in memory as a
+(t, c, h, w) tensor in ``imgs_lq`` / ``imgs_gt``, keyed by folder.
+"""
+
+from __future__ import annotations
+
+import glob
+from os import path as osp
+
+import torch
+
+from edvr_tpu_torch.data.data_util import (generate_frame_indices,
+                                           read_img_seq)
+from edvr_tpu_torch.utils import get_root_logger, scandir
+from edvr_tpu_torch.utils.registry import DATASET_REGISTRY
+
+
+@DATASET_REGISTRY.register()
+class VideoTestDataset(torch.utils.data.Dataset):
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.cache_data = opt['cache_data']
+        self.gt_root, self.lq_root = opt['dataroot_gt'], opt['dataroot_lq']
+        self.data_info = {'lq_path': [], 'gt_path': [], 'folder': [],
+                          'idx': [], 'border': []}
+        if opt['io_backend']['type'] == 'lmdb':
+            raise ValueError('No need to use lmdb during validation/test.')
+
+        logger = get_root_logger()
+        logger.info(
+            f'Generate data info for VideoTestDataset - {opt["name"]}')
+        self.imgs_lq, self.imgs_gt = {}, {}
+        if opt.get('meta_info_file'):
+            with open(opt['meta_info_file'], 'r') as fin:
+                subfolders = [line.split(' ')[0] for line in fin]
+            subfolders_lq = [osp.join(self.lq_root, k) for k in subfolders]
+            subfolders_gt = [osp.join(self.gt_root, k) for k in subfolders]
+        else:
+            subfolders_lq = sorted(glob.glob(osp.join(self.lq_root, '*')))
+            subfolders_gt = sorted(glob.glob(osp.join(self.gt_root, '*')))
+
+        if opt['name'].lower() not in ('vid4', 'reds4', 'redsofficial'):
+            raise ValueError(
+                f'Non-supported video test dataset: {opt["name"]}')
+        for subfolder_lq, subfolder_gt in zip(subfolders_lq, subfolders_gt):
+            subfolder_name = osp.basename(subfolder_lq)
+            img_paths_lq = sorted(scandir(subfolder_lq, full_path=True))
+            img_paths_gt = sorted(scandir(subfolder_gt, full_path=True))
+            max_idx = len(img_paths_lq)
+            if max_idx != len(img_paths_gt):
+                raise ValueError(
+                    f'Different number of images in lq ({max_idx}) and gt '
+                    f'folders ({len(img_paths_gt)})')
+
+            self.data_info['lq_path'].extend(img_paths_lq)
+            self.data_info['gt_path'].extend(img_paths_gt)
+            self.data_info['folder'].extend([subfolder_name] * max_idx)
+            for i in range(max_idx):
+                self.data_info['idx'].append(f'{i}/{max_idx}')
+            border_l = [0] * max_idx
+            for i in range(self.opt['num_frame'] // 2):
+                border_l[i] = 1
+                border_l[max_idx - i - 1] = 1
+            self.data_info['border'].extend(border_l)
+
+            if self.cache_data:
+                logger.info(f'Cache {subfolder_name} for VideoTestDataset...')
+                self.imgs_lq[subfolder_name] = read_img_seq(img_paths_lq)
+                self.imgs_gt[subfolder_name] = read_img_seq(img_paths_gt)
+            else:
+                self.imgs_lq[subfolder_name] = img_paths_lq
+                self.imgs_gt[subfolder_name] = img_paths_gt
+
+    def __getitem__(self, index):
+        folder = self.data_info['folder'][index]
+        idx, max_idx = map(int, self.data_info['idx'][index].split('/'))
+        select_idx = generate_frame_indices(idx, max_idx,
+                                            self.opt['num_frame'],
+                                            padding=self.opt['padding'])
+        if self.cache_data:
+            imgs_lq = self.imgs_lq[folder].index_select(
+                0, torch.LongTensor(select_idx))
+            img_gt = self.imgs_gt[folder][idx]
+        else:
+            imgs_lq = read_img_seq(
+                [self.imgs_lq[folder][i] for i in select_idx])
+            img_gt = read_img_seq([self.imgs_gt[folder][idx]])[0]
+        return {'lq': imgs_lq, 'gt': img_gt, 'folder': folder,
+                'idx': self.data_info['idx'][index],
+                'border': self.data_info['border'][index],
+                'lq_path': self.data_info['lq_path'][index]}
+
+    def __len__(self):
+        return len(self.data_info['gt_path'])

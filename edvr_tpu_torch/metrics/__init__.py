@@ -1,0 +1,16 @@
+"""Quality metrics, resolved by YAML ``type`` names
+(reference: basicsr/metrics/__init__.py)."""
+
+from copy import deepcopy
+
+from edvr_tpu_torch.metrics.psnr_ssim import calculate_psnr
+from edvr_tpu_torch.utils.registry import METRIC_REGISTRY
+
+__all__ = ['calculate_psnr', 'calculate_metric']
+
+
+def calculate_metric(data: dict, opt: dict):
+    """Dispatch a metric by its YAML option dict (``type`` key)."""
+    opt = deepcopy(opt)
+    metric_type = opt.pop('type')
+    return METRIC_REGISTRY.get(metric_type)(**data, **opt)

@@ -60,7 +60,7 @@ def jax_params_to_state_dict(params: dict) -> dict:
             else:
                 arr = _torch_layout(np.asarray(v))
                 out[_torch_key(path + (k,))] = torch.from_numpy(
-                    np.ascontiguousarray(arr, dtype=np.float32))
+                    np.array(arr, dtype=np.float32, order='C'))
 
     walk(params, ())
     return out

@@ -1,6 +1,14 @@
-"""SR engine, eval path (reference: basicsr/models/sr_model.py): builds
-the network from ``network_g`` on the engine's device and loads its
-pretrained weights."""
+"""SR engine (reference: basicsr/models/sr_model.py), the counterpart of
+``edvr_tpu/models/sr_model.py``: builds the network from ``network_g`` on
+the engine's device, loads its pretrained weights and, when training,
+takes Adam steps on a pixel loss.
+
+Parity with the JAX step: optax's ``add_decayed_weights`` then
+``scale_by_adam`` then ``p - lr * u`` is ``torch.optim.Adam`` with
+``weight_decay`` (L2 added to the gradient); a per-parameter lr multiplier
+is a param group's ``lr_mul``; a frozen parameter's gradient is multiplied
+by 0, not dropped, so Adam's step count stays shared by every parameter.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +18,7 @@ import torch
 
 from edvr_tpu_torch.archs import define_network
 from edvr_tpu_torch.models.base_model import BaseModel
+from edvr_tpu_torch.models.losses import build_loss
 from edvr_tpu_torch.utils import get_root_logger
 from edvr_tpu_torch.utils.registry import MODEL_REGISTRY
 
@@ -19,6 +28,12 @@ class SRModel(BaseModel):
 
     def __init__(self, opt):
         super().__init__(opt)
+        if self.is_train:
+            mp = opt['train'].get('mixed_precision')
+            if mp is not None:
+                raise NotImplementedError(
+                    f'train.mixed_precision {mp!r} is not ported yet '
+                    '(ROADMAP A.15); set it to null to train in fp32')
         # parameters are drawn from the option file's seed, on the CPU,
         # without touching the caller's global generator
         with torch.random.fork_rng(devices=[]):
@@ -32,4 +47,63 @@ class SRModel(BaseModel):
             self.load_network(net, load_path,
                               opt['path'].get('strict_load_g', True),
                               opt['path'].get('param_key_g', 'params'))
-        self.net_g = net.to(self.device).eval()
+        self.net_g = net.to(self.device)
+        if self.is_train:
+            self.net_g.train()
+            self.init_training_settings()
+        else:
+            self.net_g.eval()
+
+    def init_training_settings(self):
+        train_opt = self.opt['train']
+        if train_opt.get('perceptual_opt'):
+            raise NotImplementedError('the perceptual loss is not ported '
+                                      'yet (ROADMAP A.12)')
+        if not train_opt.get('pixel_opt'):
+            raise ValueError('Both pixel and perceptual losses are None.')
+        self.cri_pix = build_loss(train_opt['pixel_opt'])
+        self.setup_optimizers()
+        self.setup_schedulers()
+
+    def _param_groups(self):
+        """The optimizer's param groups, each with an lr multiplier."""
+        return [dict(params=list(self.net_g.parameters()), lr_mul=1.0)]
+
+    def setup_optimizers(self):
+        optim_opt = dict(self.opt['train']['optim_g'])
+        optim_type = optim_opt.pop('type')
+        if optim_type != 'Adam':
+            raise NotImplementedError(
+                f'optimizer {optim_type} is not supported yet.')
+        self.optimizer_g = self.optimizers['optimizer_g'] = torch.optim.Adam(
+            self._param_groups(), lr=optim_opt.pop('lr'),
+            betas=tuple(optim_opt.pop('betas', (0.9, 0.999))),
+            eps=optim_opt.pop('eps', 1e-8),
+            weight_decay=optim_opt.pop('weight_decay', 0))
+
+    def _mask_gradients(self, current_iter):
+        """Multiply frozen parameters' gradients by 0 (none here)."""
+
+    def feed_data(self, data):
+        self.lq = data['lq'].to(self.device, torch.float32)
+        if 'gt' in data:
+            self.gt = data['gt'].to(self.device, torch.float32)
+
+    def optimize_parameters(self, current_iter):
+        self.optimizer_g.zero_grad()
+        self.output = self.net_g(self.lq)
+        l_pix = self.cri_pix(self.output, self.gt)
+        l_pix.backward()
+        self.log_dict = {'l_pix': l_pix.detach()}
+        self.step_optimizers(current_iter)
+
+    def step_optimizers(self, current_iter):
+        """Apply the gradients held in ``.grad`` at ``current_iter``: the
+        scheduled lr, frozen gradients multiplied by 0, one Adam step."""
+        self.update_learning_rate(current_iter)
+        self._mask_gradients(current_iter)
+        self.optimizer_g.step()
+
+    def save(self, epoch, current_iter):
+        self.save_network(self.net_g, 'net_g', current_iter)
+        self.save_training_state(epoch, current_iter)

@@ -1,7 +1,8 @@
-"""Video SR engine, eval path (reference:
-basicsr/models/video_base_model.py), the counterpart of
-``edvr_tpu/models/video_base_model.py``: per-folder x per-frame metric
-tables filled by whole-clip EDVR evaluation (``val.clip_mode``)."""
+"""Video SR engine (reference: basicsr/models/video_base_model.py), the
+counterpart of ``edvr_tpu/models/video_base_model.py``: per-folder x
+per-frame metric tables filled by whole-clip EDVR evaluation, from the
+test CLI (``val.clip_mode``) or from the training loop at ``val_freq``.
+Training itself is the SR engine's."""
 
 from __future__ import annotations
 
@@ -53,13 +54,22 @@ class VideoBaseModel(SRModel):
 
     def validation(self, dataloader, current_iter, tb_logger,
                    save_img=False):
+        """Score every frame of the dataset's clips. Whole-clip evaluation
+        is the only protocol ported: under the test CLI it needs
+        ``val.clip_mode``; during training (``val_freq``) it is taken for
+        the per-window protocol, whose window outputs it reproduces
+        (``edvr_tpu/models/video_base_model.py::_clip_validation``)."""
         dataset = dataloader.dataset
-        if not ((self.opt.get('val') or {}).get('clip_mode')
+        clip_mode = (self.opt.get('val') or {}).get('clip_mode')
+        if not ((clip_mode or self.is_train)
                 and isinstance(dataset, VideoTestDataset)
                 and isinstance(self.net_g, EDVR)):
             raise NotImplementedError(
                 'only whole-clip validation (val.clip_mode with a '
                 'VideoTestDataset and an EDVR network) is ported yet')
+        if save_img and self.is_train:
+            raise NotImplementedError(
+                'saving image is not supported during training.')
         self._clip_validation(dataset, current_iter, tb_logger, save_img)
 
     def _clip_validation(self, dataset, current_iter, tb_logger, save_img):

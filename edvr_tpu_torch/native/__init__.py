@@ -32,6 +32,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     'dcn_fwd': ('dcn_fwd_f32', [_P] * 6 + [_I] * 13 + [_P]),
+    'dcn_bwd': ('dcn_bwd_f32', [_P] * 9 + [_I] * 14 + [_P]),
 }
 
 _libs: dict = {}

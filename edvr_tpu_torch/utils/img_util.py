@@ -30,6 +30,19 @@ def img2tensor(imgs, bgr2rgb: bool = True):
     return _totensor(imgs)
 
 
+def imfrombytes(content: bytes, flag: str = 'color',
+                float32: bool = False) -> np.ndarray:
+    """Decode an image from bytes, BGR like cv2
+    (reference: basicsr/utils/img_util.py:101-123)."""
+    import cv2
+    flags = {'color': cv2.IMREAD_COLOR, 'grayscale': cv2.IMREAD_GRAYSCALE,
+             'unchanged': cv2.IMREAD_UNCHANGED}
+    img = cv2.imdecode(np.frombuffer(content, np.uint8), flags[flag])
+    if float32:
+        img = img.astype(np.float32) / 255.
+    return img
+
+
 def tensor2img(tensor, rgb2bgr: bool = True, out_type=np.uint8,
                min_max=(0, 1)):
     """Network tensor(s) -> HWC BGR numpy image(s).

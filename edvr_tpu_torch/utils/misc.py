@@ -5,7 +5,19 @@ from __future__ import annotations
 
 import os
 import os.path as osp
+import random
 import time
+
+import numpy as np
+import torch
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators
+    (reference: misc.py:13-19)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def get_time_str() -> str:
@@ -52,3 +64,26 @@ def scandir(dir_path, suffix=None, full_path=False):
             continue
         if suffix is None or entry.name.endswith(suffix):
             yield entry.path if full_path else entry.name
+
+
+def check_resume(opt, resume_iter: int) -> None:
+    """Point every ``pretrain_network_*`` option at the run's own
+    checkpoint of the resumed iteration (``<models>/net_<suffix>_<iter>.pth``),
+    superseding whatever the YAML named (reference: misc.py:97-117)."""
+    from edvr_tpu_torch.utils.logger import get_root_logger
+    if not opt['path'].get('resume_state'):
+        return
+    logger = get_root_logger()
+    networks = [k for k in opt if k.startswith('network_')]
+    if any(opt['path'].get(f'pretrain_{n}') is not None for n in networks):
+        logger.warning('resume overrides the configured pretrain_network '
+                       'paths')
+    skip = opt['path'].get('ignore_resume_networks') or ()
+    for net in networks:
+        if net in skip:
+            continue
+        suffix = net[len('network_'):]
+        ckpt = osp.join(opt['path']['models'],
+                        f'net_{suffix}_{resume_iter}.pth')
+        opt['path'][f'pretrain_{net}'] = ckpt
+        logger.info(f'resume: pretrain_{net} <- {ckpt}')

@@ -123,9 +123,9 @@ def test_cli_cuda_without_card_fails(tmp_path):
 
 
 def test_port_imports_no_jax_cv2_or_yaml():
-    """Importing every module of the port (and chip_smoke.py) pulls in no
-    JAX, nothing of edvr_tpu, and neither cv2 nor yaml: the card's
-    Python may have none of them."""
+    """Importing every module of the port (and chip_smoke.py), the
+    training slice's included, pulls in no JAX, nothing of edvr_tpu, and
+    neither cv2 nor yaml: the card's Python may have none of them."""
     code = (
         'import pkgutil, sys, edvr_tpu_torch\n'
         'for m in pkgutil.walk_packages(edvr_tpu_torch.__path__, '
@@ -134,8 +134,13 @@ def test_port_imports_no_jax_cv2_or_yaml():
         'import chip_smoke\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "flax", "optax", "edvr_tpu", "cv2", "yaml"))\n'
-        'print(bad)\n'
-        'sys.exit(1 if bad else 0)\n')
+        'need = ["edvr_tpu_torch." + m for m in ("train", "ops.dcn", '
+        '"models.losses", "models.lr_scheduler", "models.edvr_model", '
+        '"data.transforms", "data.file_client", "data.reds_dataset", '
+        '"data.data_sampler", "utils.logger", "utils.misc")]\n'
+        'missing = [m for m in need if m not in sys.modules]\n'
+        'print(bad, missing)\n'
+        'sys.exit(1 if bad or missing else 0)\n')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]

@@ -86,3 +86,58 @@ class DCNv2Pack(nn.Module):
                                      self.stride, self.padding,
                                      self.dilation, self.groups,
                                      self.deformable_groups)
+
+
+class WarpAlignPack(nn.Module):
+    """Tap-shared deformable alignment, the ``align_variant: tap_shared``
+    counterpart of :class:`DCNv2Pack` (``edvr_tpu/archs/arch_util.py:236-314``).
+
+    One (dy, dx, mask) per deformable group warps each group's feature
+    plane (bilinear, zero outside, masked), then a dense k x k conv runs
+    over the warped planes. The warp is a K=1 modulated deformable conv
+    with an identity 1x1 weight, so it rides the same DCN kernels.
+
+    ``conv_offset`` (dg*3 outputs, zero-initialised) and the dense conv's
+    ``weight``/``bias`` are named so that the JAX tree converts unchanged:
+    ``convert._torch_key`` drops the flax ``conv`` scopes, which puts the
+    JAX ``conv/conv/kernel`` on ``weight``.
+    """
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
+                 padding=1, dilation=1, groups=1, deformable_groups=8):
+        super().__init__()
+        if in_channels % deformable_groups:
+            raise ValueError(f'in_channels {in_channels} is not a multiple '
+                             f'of deformable_groups {deformable_groups}')
+        self.stride = stride
+        self.padding = padding
+        self.dilation = dilation
+        self.groups = groups
+        self.deformable_groups = deformable_groups
+        k = kernel_size
+        self.conv_offset = nn.Conv2d(in_channels, deformable_groups * 3, k,
+                                     1, (k - 1) // 2, dilation, bias=True)
+        # the dense conv starts as torch's Conv2d default, as the JAX
+        # Conv2d's torch-default init does
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels // groups, k, k))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        bound = 1. / math.sqrt(in_channels // groups * k * k)
+        with torch.no_grad():
+            self.conv_offset.weight.zero_()
+            self.conv_offset.bias.zero_()
+            nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+            self.bias.uniform_(-bound, bound)
+
+    def forward(self, x, feat):
+        n, cin, h, w = x.shape
+        dg = self.deformable_groups
+        dy, dx, mask = torch.chunk(self.conv_offset(feat), 3, dim=1)
+        # channel 2g is group g's dy and 2g+1 its dx (K=1)
+        offset = torch.stack([dy, dx], dim=2).reshape(n, 2 * dg, h, w)
+        eye = torch.eye(cin, device=x.device, dtype=x.dtype).view(
+            cin, cin, 1, 1)
+        warped = modulated_deform_conv(x, offset, torch.sigmoid(mask), eye,
+                                       None, 1, 0, 1, 1, dg)
+        return F.conv2d(warped, self.weight, self.bias, self.stride,
+                        self.padding, self.dilation, self.groups)

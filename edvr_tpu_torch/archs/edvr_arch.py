@@ -20,7 +20,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from edvr_tpu_torch.archs.arch_util import (DCNv2Pack, ResidualBlockNoBN,
-                                            lrelu, make_layer)
+                                            WarpAlignPack, lrelu, make_layer)
 from edvr_tpu_torch.data.data_util import generate_frame_indices
 from edvr_tpu_torch.utils.registry import ARCH_REGISTRY
 
@@ -32,11 +32,18 @@ def _up2(x):
 
 class PCDAlignment(nn.Module):
     """Pyramid, Cascading and Deformable alignment
-    (reference: edvr_arch.py:9-117)."""
+    (reference: edvr_arch.py:9-117).
 
-    def __init__(self, num_feat=64, deformable_groups=8):
+    ``align_variant`` picks the alignment module: ``'dcn'`` (DCNv2Pack,
+    the reference's) or ``'tap_shared'`` (WarpAlignPack,
+    ``edvr_tpu/archs/edvr_arch.py:48-56``).
+    """
+
+    def __init__(self, num_feat=64, deformable_groups=8, align_variant='dcn'):
         super().__init__()
         nf = num_feat
+        pack_cls = {'dcn': DCNv2Pack,
+                    'tap_shared': WarpAlignPack}[align_variant]
         self.offset_conv1 = nn.ModuleDict()
         self.offset_conv2 = nn.ModuleDict()
         self.offset_conv3 = nn.ModuleDict()
@@ -50,14 +57,14 @@ class PCDAlignment(nn.Module):
             else:
                 self.offset_conv2[level] = nn.Conv2d(nf * 2, nf, 3, 1, 1)
                 self.offset_conv3[level] = nn.Conv2d(nf, nf, 3, 1, 1)
-            self.dcn_pack[level] = DCNv2Pack(
+            self.dcn_pack[level] = pack_cls(
                 nf, nf, 3, padding=1, deformable_groups=deformable_groups)
             if i < 3:
                 self.feat_conv[level] = nn.Conv2d(nf * 2, nf, 3, 1, 1)
         self.cas_offset_conv1 = nn.Conv2d(nf * 2, nf, 3, 1, 1)
         self.cas_offset_conv2 = nn.Conv2d(nf, nf, 3, 1, 1)
-        self.cas_dcnpack = DCNv2Pack(nf, nf, 3, padding=1,
-                                     deformable_groups=deformable_groups)
+        self.cas_dcnpack = pack_cls(nf, nf, 3, padding=1,
+                                    deformable_groups=deformable_groups)
 
     def forward(self, nbr_feat_l, ref_feat_l):
         """nbr_feat_l / ref_feat_l: lists of three (n, c, h, w) tensors
@@ -162,7 +169,8 @@ class EDVR(nn.Module):
     def __init__(self, num_in_ch=3, num_out_ch=3, num_feat=64, num_frame=5,
                  deformable_groups=8, num_extract_block=5,
                  num_reconstruct_block=10, center_frame_idx=None,
-                 hr_in=False, with_predeblur=False, with_tsa=True):
+                 hr_in=False, with_predeblur=False, with_tsa=True,
+                 align_variant='dcn'):
         super().__init__()
         if hr_in or with_predeblur:
             raise NotImplementedError(
@@ -180,7 +188,8 @@ class EDVR(nn.Module):
         self.conv_l3_1 = nn.Conv2d(nf, nf, 3, 2, 1)
         self.conv_l3_2 = nn.Conv2d(nf, nf, 3, 1, 1)
         self.pcd_align = PCDAlignment(num_feat=nf,
-                                      deformable_groups=deformable_groups)
+                                      deformable_groups=deformable_groups,
+                                      align_variant=align_variant)
         if with_tsa:
             self.fusion = TSAFusion(num_feat=nf, num_frame=num_frame,
                                     center_frame_idx=self.center_frame_idx)

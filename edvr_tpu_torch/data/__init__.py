@@ -38,19 +38,28 @@ def _seed_worker(worker_id):
         dataset.rng.seed(torch.initial_seed())
 
 
-def create_dataloader(dataset, dataset_opt, sampler=None, seed=None):
+def create_dataloader(dataset, dataset_opt, num_gpu=1, dist=False,
+                      sampler=None, seed=None):
     """A loader with the reference's phase semantics
-    (reference: basicsr/data/__init__.py:56-119): a training loader
-    batches ``batch_size_per_gpu`` items with ``num_worker_per_gpu``
-    workers, drops the last partial batch and reseeds each worker from
-    ``seed``; a val/test loader is batch-1, unshuffled and synchronous."""
+    (reference: basicsr/data/__init__.py:56-119): a training loader drops
+    the last partial batch and reseeds each worker from ``seed``; a
+    val/test loader is batch-1, unshuffled and synchronous.
+
+    Without ``dist`` one process feeds all ``num_gpu`` devices, so a
+    training batch holds ``batch_size_per_gpu x max(num_gpu, 1)`` items
+    loaded by ``num_worker_per_gpu x max(num_gpu, 1)`` workers, as in
+    ``edvr_tpu/data/__init__.py:50-60``; with ``dist`` each process loads
+    its own device's share.
+    """
     phase = dataset_opt['phase']
     if phase == 'train':
-        workers = dataset_opt['num_worker_per_gpu']
+        multiplier = 1 if dist else max(num_gpu, 1)
+        batch_size = dataset_opt['batch_size_per_gpu'] * multiplier
+        workers = dataset_opt['num_worker_per_gpu'] * multiplier
         # workers are spawned, not forked (the training process has
         # threads), and kept across epochs so they start once
         return torch.utils.data.DataLoader(
-            dataset, batch_size=dataset_opt['batch_size_per_gpu'],
+            dataset, batch_size=batch_size,
             shuffle=sampler is None, sampler=sampler, num_workers=workers,
             drop_last=True, worker_init_fn=_seed_worker,
             generator=torch.Generator().manual_seed(seed or 0),

@@ -33,7 +33,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     'dcn_fwd': ('dcn_fwd_f32', [_P] * 6 + [_I] * 13 + [_P]),
     'dcn_bwd': ('dcn_bwd_f32', [_P] * 9 + [_I] * 14 + [_P]),
+    'row_gather': ('row_gather_f32', [_P] * 4 + [_I] * 3 + [_P]),
+    'blend_matmul': ('blend_matmul_f32', [_P] * 5 + [_I] * 4 + [_P]),
 }
+
+# launches of each kernel, counted by its wrapper where the kernel is
+# launched and nowhere else; a caller resets them to check that a path
+# went through a kernel
+LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _libs: dict = {}
 _ptxas_logs: dict = {}

@@ -15,17 +15,31 @@ takes the plain PyTorch version under autograd, a CUDA tensor the
 hand-written kernels through an autograd Function (forward
 ``edvr_tpu_torch/csrc/dcn_fwd.cu``, backward ``csrc/dcn_bwd.cu``), which
 raise rather than fall back.
+
+With ``EDVR_TPU_DCN_PALLAS=1``, the JAX package's switch, and a tile of at
+least two pixels (``128 // (2 * c_per) >= 2``), it takes the packed route
+instead (:func:`_mdcn_packed`, the gather branch of
+``edvr_tpu/ops/dcn.py::_mdcn_packed``): one row gather
+(``ops/gather.py``, ``csrc/row_gather.cu``) and one blend GEMM
+(``ops/dcn_blend.py``, ``csrc/blend_matmul.cu``) per deformable group, on
+either device; on a CUDA tensor it never launches ``dcn_fwd``/``dcn_bwd``.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+from torch.nn import functional as F
 
 from edvr_tpu_torch import native
+from edvr_tpu_torch.ops.dcn_blend import blend_matmul_group
+from edvr_tpu_torch.ops.gather import row_gather
 
-# launches of each kernel of this module, counted where the kernel is
-# launched; a caller resets them to check that a path went through it
-LAUNCHES = {'dcn_fwd': 0, 'dcn_bwd': 0}
+# launches of every kernel of the port (``native.LAUNCHES``, the same
+# dict), counted where each kernel is launched; a caller resets them to
+# check that a path went through a kernel
+LAUNCHES = native.LAUNCHES
 
 
 def _out_size(size, k, stride, padding, dilation):
@@ -97,6 +111,116 @@ def modulated_deform_conv_plain(x, offset, mask, weight, bias=None,
     return out
 
 
+def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
+                 groups, dg):
+    """The packed-tile DCNv2 (``edvr_tpu/ops/dcn.py:560-836``, its gather
+    branch with the blend kernel), NCHW in and out, float32.
+
+    Each group's input plane is re-laid into overlapping tiles of 2 rows x
+    PX pixels x c_per channels (``lanes`` = 2*PX*c_per, 128 when 2*c_per
+    divides 128), so one row of the tile table holds all four bilinear
+    corners of a sample. Per tap the sample picks its tile row and the
+    coefficients of its (row, pixel) slots; out-of-image corners fall
+    outside the tile's slots or carry a zero validity, which is the per-tap
+    zero boundary. Per deformable group, one row gather fetches the tiles of
+    all K taps as ``g_cat`` (NP, K*lanes) and one blend GEMM contracts them
+    with the tap weights tiled over the slots.
+    """
+    n, cin, h, w = x.shape
+    cout, cin_g, kh, kw = weight.shape
+    K = kh * kw
+    c_per = cin // dg
+    PX = 128 // (2 * c_per)        # pixels per tile row
+    SX = PX - 1                    # tile stride (tiles overlap by 1 pixel)
+    tiles_x = (w - 1) // SX + 1
+    lanes = 2 * PX * c_per
+    oh = _out_size(h, kh, stride, padding, dilation)
+    ow = _out_size(w, kw, stride, padding, dilation)
+    P = oh * ow
+    NP = n * P
+    dt, dev = x.dtype, x.device
+
+    # tile table (:706-728): tile t holds columns t*SX .. t*SX+PX-1 (zero
+    # beyond w) of an image row (r=0) and of the row below it (r=1, zero
+    # under the last row); rows (n, dg, h, tiles_x), lanes (r, px, c)
+    tab = F.pad(x, (0, tiles_x * SX + 1 - w)).unfold(3, PX, SX)
+    tab_dn = F.pad(tab[:, :, 1:], (0, 0, 0, 0, 0, 1))
+    tab = torch.stack([tab, tab_dn], dim=4).view(
+        n, dg, c_per, h, tiles_x, 2, PX).permute(0, 1, 3, 4, 5, 6, 2)
+    tab = tab.reshape(n * dg * h * tiles_x, lanes)
+
+    # weights tiled across the (row, pixel) slots (:605-614): wexp[k, g,
+    # lane=(r, px, c), o], block-diagonal over the conv groups
+    wk = weight.permute(2, 3, 1, 0).reshape(K, cin_g, cout)
+    wfull = wk if groups == 1 else torch.stack([
+        torch.block_diag(*wk[k].split(cout // groups, dim=1))
+        for k in range(K)])
+    wexp = wfull.view(K, dg, 1, c_per, cout).expand(
+        K, dg, 2 * PX, c_per, cout).reshape(K, dg, lanes, cout)
+
+    # per tap (:729-805): sample coordinates, the tile row and the slot
+    # coefficients, all groups and taps at once as (n, dg, K, P)
+    base_y = (torch.arange(oh, device=dev, dtype=dt) * stride
+              - padding).view(oh, 1).expand(oh, ow).reshape(1, 1, 1, P)
+    base_x = (torch.arange(ow, device=dev, dtype=dt) * stride
+              - padding).view(1, ow).expand(oh, ow).reshape(1, 1, 1, P)
+    taps = torch.arange(K, device=dev)
+    tap_y = ((taps // kw) * dilation).to(dt).view(1, 1, K, 1)
+    tap_x = ((taps % kw) * dilation).to(dt).view(1, 1, K, 1)
+    off = offset.reshape(n, dg, K, 2, P)
+    cy = (base_y + tap_y) + off[:, :, :, 0]
+    cx = (base_x + tap_x) + off[:, :, :, 1]
+    y0 = torch.floor(cy)
+    x0 = torch.floor(cx)
+    fy = cy - y0
+    fx = cx - x0
+    # validity is decided on the float corner; the corners are clamped just
+    # beyond the image before the integer conversion, which changes no
+    # valid corner, so any offset magnitude stays exact
+    vy0 = ((y0 >= 0) & (y0 <= h - 1)).to(dt)
+    vy1 = ((y0 >= -1) & (y0 <= h - 2)).to(dt)
+    vx0 = ((x0 >= 0) & (x0 <= w - 1)).to(dt)
+    vx1 = ((x0 >= -1) & (x0 <= w - 2)).to(dt)
+    y0i = y0.detach().clamp(-2, h).to(torch.int32)
+    x0i = x0.detach().clamp(-2, w).to(torch.int32)
+    ty = y0i.clamp(0, h - 1)
+    tx = torch.div(x0i, SX, rounding_mode='floor').clamp(0, tiles_x - 1)
+    row_base = ((torch.arange(n, device=dev, dtype=torch.int32) * dg).view(
+        n, 1) + torch.arange(dg, device=dev, dtype=torch.int32)) * (
+            h * tiles_x)
+    row = ty * tiles_x + tx + row_base.view(n, dg, 1, 1)
+    ry0 = (y0i - ty).unsqueeze(-1)
+    px0 = (x0i - SX * tx).unsqueeze(-1)
+    mg = mask.reshape(n, dg, K, P)
+    zero = torch.zeros((), device=dev, dtype=dt)
+    slot_r = torch.arange(2, device=dev, dtype=torch.int32)
+    slot_p = torch.arange(PX, device=dev, dtype=torch.int32)
+    # the coefficient of slot (r, px) is the row factor of r times the
+    # pixel factor of px, as the two jnp.where of :796-799 multiply
+    coef_r = torch.where(slot_r == ry0, ((1 - fy) * vy0 * mg).unsqueeze(-1),
+                         torch.where(slot_r == ry0 + 1,
+                                     (fy * vy1 * mg).unsqueeze(-1), zero))
+    coef_p = torch.where(slot_p == px0, ((1 - fx) * vx0).unsqueeze(-1),
+                         torch.where(slot_p == px0 + 1,
+                                     (fx * vx1).unsqueeze(-1), zero))
+
+    # per deformable group: one gather over all K taps, laid out (NP, K)
+    # so that the (NP*K, lanes) rows read as (NP, K*lanes), the
+    # lane-concatenation of the taps; one blend GEMM into the accumulator
+    out = x.new_zeros(NP, cout)
+    for g in range(dg):
+        idx = row[:, g].permute(0, 2, 1).reshape(-1)
+        g_cat = row_gather(tab, idx).view(NP, K * lanes)
+        cs_cat = (coef_r[:, g].permute(0, 2, 1, 3).unsqueeze(-1)
+                  * coef_p[:, g].permute(0, 2, 1, 3).unsqueeze(-2)
+                  ).reshape(NP, K * 2 * PX)
+        wexp_g = wexp[:, g].reshape(K * lanes, cout)
+        out = blend_matmul_group(g_cat, cs_cat, wexp_g, out, c_per)
+
+    out = out.view(n, oh, ow, cout).permute(0, 3, 1, 2).contiguous()
+    if bias is not None:
+        out = out + bias.view(1, -1, 1, 1)
+    return out
 
 
 def _check_cuda_args(op, tensors, x, offset, mask, weight, bias, stride,
@@ -260,17 +384,26 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None, stride=1,
                           deformable_groups=1):
     """DCNv2, dispatched on the device of ``x``.
 
-    A CPU tensor takes :func:`modulated_deform_conv_plain` under plain
-    autograd; a CUDA tensor takes :class:`ModulatedDeformConvFunction`,
+    With ``EDVR_TPU_DCN_PALLAS=1`` and ``128 // (2 * c_per) >= 2`` (the
+    JAX package's switch and condition, ``edvr_tpu/ops/dcn.py:461-465,
+    616-627``) the packed route :func:`_mdcn_packed` runs, its gather and
+    blend kernels on a CUDA tensor and their plain versions on a CPU one.
+    Otherwise a CPU tensor takes :func:`modulated_deform_conv_plain` under
+    plain autograd, and a CUDA tensor :class:`ModulatedDeformConvFunction`,
     whose forward and backward launch the kernels or raise.
     """
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'modulated_deform_conv: unsupported device '
+                         f'{x.device}')
+    c_per = x.shape[1] // deformable_groups
+    if (os.environ.get('EDVR_TPU_DCN_PALLAS') == '1'
+            and 128 // (2 * c_per) >= 2):
+        return _mdcn_packed(x, offset, mask, weight, bias, stride, padding,
+                            dilation, groups, deformable_groups)
     if x.is_cuda:  # groups=1 only: the kernels' checks refuse others
         return ModulatedDeformConvFunction.apply(
             x, offset, mask, weight, bias, stride, padding, dilation,
             deformable_groups)
-    if x.device.type != 'cpu':
-        raise ValueError(f'modulated_deform_conv: unsupported device '
-                         f'{x.device}')
     return modulated_deform_conv_plain(x, offset, mask, weight, bias, stride,
                                        padding, dilation, groups,
                                        deformable_groups)

@@ -8,7 +8,8 @@ One process on one device (``cuda`` unless ``--device`` says otherwise),
 fp32 with TF32 off. The loop is the reference's: epochs over an enlarged
 sampler, message logging at ``print_freq``, checkpoints at
 ``save_checkpoint_freq``, validation at ``val_freq``, resume from
-``path.resume_state``. ``parse_options`` is shared with the test CLI.
+``path.resume_state``. ``parse_options`` is shared with the test CLI and
+turns TF32 off for both.
 """
 
 from __future__ import annotations
@@ -57,6 +58,11 @@ def parse_options(is_train=True, args=None):
     opt['dist'] = False
     opt['rank'], opt['world_size'] = 0, 1
     opt['device'] = args.device
+    # fp32 on the card for both CLIs: no TF32 in cuDNN convolutions or
+    # matmuls (cuDNN allows it by default), as the reference is compared
+    # at full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     seed = opt.get('manual_seed')
     if seed is None:
@@ -75,11 +81,16 @@ def create_train_val_dataloader(opt, logger):
             train_set = create_dataset(dict(dataset_opt,
                                             seed=opt['manual_seed']))
             train_sampler = EnlargedSampler(train_set, 1, 0, ratio)
-            train_loader = create_dataloader(train_set, dataset_opt,
-                                             sampler=train_sampler,
-                                             seed=opt['manual_seed'])
+            train_loader = create_dataloader(
+                train_set, dataset_opt, num_gpu=opt['num_gpu'],
+                dist=opt['dist'], sampler=train_sampler,
+                seed=opt['manual_seed'])
+            # one process feeds all num_gpu devices
+            # (edvr_tpu/train.py:107-110)
             num_iter_per_epoch = math.ceil(
-                len(train_set) * ratio / dataset_opt['batch_size_per_gpu'])
+                len(train_set) * ratio /
+                (dataset_opt['batch_size_per_gpu'] * opt['world_size'] *
+                 (1 if opt['dist'] else max(opt['num_gpu'], 1))))
             total_iters = int(opt['train']['total_iter'])
             total_epochs = math.ceil(total_iters / num_iter_per_epoch)
             logger.info(
@@ -100,9 +111,6 @@ def create_train_val_dataloader(opt, logger):
 
 def main(args=None):
     opt = parse_options(is_train=True, args=args)
-    # fp32 training: no TF32 in cuDNN convolutions or matmuls
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     resume_state = load_resume_state(opt)
     if resume_state is None:

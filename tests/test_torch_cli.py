@@ -122,10 +122,36 @@ def test_cli_cuda_without_card_fails(tmp_path):
     assert 'CUDA is not available' in proc.stderr
 
 
+@pytest.mark.parametrize('is_train', [False, True])
+def test_parse_options_turns_tf32_off(tmp_path, is_train):
+    """Both CLIs parse their options with ``parse_options``, which turns
+    TF32 off in cuDNN convolutions and in matmuls; in a fresh process
+    cuDNN's is on (and matmul's is turned on here first)."""
+    yml = _write_opt(tmp_path, str(tmp_path / 'reds4'), 'tf32')
+    code = (
+        'import sys, torch\n'
+        'from edvr_tpu_torch.train import parse_options\n'
+        'flags = lambda: (torch.backends.cuda.matmul.allow_tf32, '
+        'torch.backends.cudnn.allow_tf32)\n'
+        'torch.backends.cuda.matmul.allow_tf32 = True\n'
+        'before = flags()\n'
+        f'parse_options(is_train={is_train}, '
+        f'args=["-opt", sys.argv[1], "--device", "cpu"])\n'
+        'print(before, flags())\n')
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.environ.get('PYTHONPATH', '')]))
+    proc = subprocess.run([sys.executable, '-c', code, yml], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ['(True,', 'True)', '(False,', 'False)']
+
+
 def test_port_imports_no_jax_cv2_or_yaml():
     """Importing every module of the port (and chip_smoke.py), the
-    training slice's included, pulls in no JAX, nothing of edvr_tpu, and
-    neither cv2 nor yaml: the card's Python may have none of them."""
+    training slice's and the packed DCN route's included, pulls in no JAX,
+    nothing of edvr_tpu, and neither cv2 nor yaml: the card's Python may
+    have none of them."""
     code = (
         'import pkgutil, sys, edvr_tpu_torch\n'
         'for m in pkgutil.walk_packages(edvr_tpu_torch.__path__, '
@@ -135,6 +161,7 @@ def test_port_imports_no_jax_cv2_or_yaml():
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "flax", "optax", "edvr_tpu", "cv2", "yaml"))\n'
         'need = ["edvr_tpu_torch." + m for m in ("train", "ops.dcn", '
+        '"ops.gather", "ops.dcn_blend", "archs.arch_util", '
         '"models.losses", "models.lr_scheduler", "models.edvr_model", '
         '"data.transforms", "data.file_client", "data.reds_dataset", '
         '"data.data_sampler", "utils.logger", "utils.misc")]\n'

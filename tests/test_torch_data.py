@@ -203,3 +203,44 @@ def test_worker_reseeding(monkeypatch, reds_root):
     assert draws[0] == draws[2] != draws[1]
     expect = random.Random(11)  # torch.manual_seed(11) -> initial_seed 11
     assert draws[0] == [expect.random() for _ in range(3)]
+
+
+class _Log:
+    """A logger that keeps its messages."""
+
+    def __init__(self):
+        self.lines = []
+
+    def info(self, msg):
+        self.lines.append(msg)
+
+
+@pytest.mark.parametrize('num_gpu', [0, 2])
+def test_num_gpu_batch_and_epochs_match_jax(reds_root, num_gpu):
+    """Without a launcher one process feeds all num_gpu devices: the
+    training CLI's loader batches batch_size_per_gpu x num_gpu items with
+    num_worker_per_gpu x num_gpu workers, and the iterations per epoch and
+    the epoch count follow, as in the JAX CLI."""
+    from edvr_tpu.train import create_train_val_dataloader as j_create
+    from edvr_tpu_torch.train import create_train_val_dataloader
+    opts, logs, results = [], [], []
+    for _ in range(2):
+        opts.append(dict(
+            num_gpu=num_gpu, dist=False, rank=0, world_size=1,
+            manual_seed=5, train=dict(total_iter=1000),
+            datasets=dict(train=_reds_opt(reds_root, batch_size_per_gpu=3,
+                                          num_worker_per_gpu=1,
+                                          dataset_enlarge_ratio=4))))
+        logs.append(_Log())
+    for create, opt, log in zip((create_train_val_dataloader, j_create),
+                                opts, logs):
+        loader, _, _, total_epochs, total_iters = create(opt, log)
+        per_epoch = [int(ln.split('per epoch: ')[1].split()[0])
+                     for ln in log.lines if 'per epoch: ' in ln]
+        results.append((loader.batch_size, loader.num_workers, per_epoch,
+                        total_epochs, total_iters))
+    ours, ref = results
+    multiplier = max(num_gpu, 1)
+    assert ours == ref
+    assert ours[:3] == (3 * multiplier, multiplier,
+                        [-(-200 * 4 // (3 * multiplier))])

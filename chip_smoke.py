@@ -3,15 +3,18 @@
     python3 chip_smoke.py
 
 Drives the port's paths at EDVR-M x4 full width (64 features, 5 frames,
-dg=8, 5+10 blocks, TSA, fp32 with TF32 off): whole-clip inference
+dg=8, 5+10 blocks, TSA; fp32 with TF32 off, and the bf16 mixed-precision
+training step of the shipped YAML): whole-clip inference
 (``options/test/EDVR/test_EDVR_M_x4_SR_REDS.yml``, window mode,
 win_batch=1) and training (``options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml``)
 on the direct DCN kernels, both again through the packed DCN route
 (``EDVR_TPU_DCN_PALLAS=1``: row gather + blend GEMM kernels), and training
 of the tap_shared variant
-(``options/train/EDVR/train_EDVR_M_x4_SR_REDS_tapshared.yml``); and checks
-every hand-written kernel of those paths against its plain PyTorch
-version. Phases, each printing one flushed JSON line with its ``seconds``:
+(``options/train/EDVR/train_EDVR_M_x4_SR_REDS_tapshared.yml``), training
+in bf16 (``mixed_precision: bf16`` kept) and the DCN forward's ablation
+variants through their timing tool; and checks every hand-written kernel
+of those paths against its plain PyTorch version. Phases, each printing
+one flushed JSON line with its ``seconds``:
 
 1. device: the card's name and power limit;
 2. build: nvcc builds every kernel from ``edvr_tpu_torch/csrc``, one
@@ -56,7 +59,26 @@ version. Phases, each printing one flushed JSON line with its ``seconds``:
     batch-1 step's gradients against the direct route on the card;
 12. tapshared_train: tap_shared EDVR-M training steps on the direct
     kernels (4 K=1 dcn_fwd and 4 dcn_bwd launches per step), and one
-    batch-1 step's gradients against the plain CPU path.
+    batch-1 step's gradients against the plain CPU path;
+13. kernel_bf16_<level>: the bf16 DCNv2 forward kernel against the bf16
+    plain version at L1/L2/L3 and at the training shapes (train_L1/L2/L3),
+    offsets beyond +-10 px, and at the training shapes the bf16 backward
+    kernel against autograd through the bf16 plain version; times beside
+    the bf16 bounds and the fp32 kernels' times;
+14. mp_train: the same training with ``mixed_precision: bf16`` kept
+    (MP_CUTS): 10 steps at batch 4, 4 dcn_fwd_bf16 and 4 dcn_bwd_bf16
+    launches per step and no fp32 DCN launch, the TSA freeze and unfreeze,
+    f32 master parameters and Adam state, ms per step and peak memory,
+    then 3 steps under torch.profiler (kernel time by category, launches,
+    busy share); and from the golden weights and one batch, two bf16 steps
+    against two fp32 steps on the card: the first step's gradients within
+    5e-2 over all parameters (relative L2) and a cosine of at least 0.5
+    for each tensor, beside what a negated gradient and another batch's
+    read; loss per element within 5e-3 and parameters within 1.6e-3;
+15. ablate_l1: every ablation variant of ``dcn_fwd.cu``
+    (``ops/dcn_ablate.py``) against its plain version at EDVR-M L1 in fp32
+    and bf16, then the timing table of
+    ``python -m edvr_tpu_torch.tools.ablate_dcn``, one line per variant.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -85,6 +107,11 @@ import torch.nn.functional as F
 ROOT = osp.dirname(osp.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+# the H100's peak rates, the bounds' denominators, and the CUDA-event timer
+# are the ablation tool's, so every kernel is bounded against one table
+from edvr_tpu_torch.tools.ablate_dcn import (  # noqa: E402
+    PEAK_BYTES, PEAK_OPS, cuda_ms)
+
 SEED = 0
 DCN_TOL = 1e-4     # kernel vs plain, fp32: same arithmetic, other order
 GOLDEN_TOL = 3e-4  # as tests/test_arch_parity.py
@@ -101,9 +128,6 @@ BWD_TOL = 1e-4
 # count them); against float64 the tap_shared gap is cuDNN's convolution
 # gradients (it vanishes with cuDNN off, tapshared_train's probes)
 STEP_GRAD_TOL = 1e-3
-# H100 SXM published peaks (NVIDIA data sheet), the bound's denominators
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # EDVR-M pyramid levels of a 180x320 clip, 5 frames per window
 LEVELS = {'L1': (180, 320), 'L2': (90, 160), 'L3': (45, 80)}
 # training: batch 4 x 5 frames folded into the PCD batch, 64x64 LQ crops
@@ -184,6 +208,39 @@ TAPSHARED_CUTS = [f'train.total_iter: 600000 -> {PACKED_STEPS} steps',
                   'pretrain: none -> seeded init with the conv_offset '
                   'weights drawn from N(0, 0.01), so the warp moves']
 
+# the bf16 kernels against the bf16 plain version, relative to each
+# result's largest entry. Forward: the same rounding points (coefficient
+# and per-corner product in bf16), the float32 contraction summed in
+# another order, which moves the bf16 output rounding by one ulp (2^-8).
+# Backward: the kernel sums in float32 where autograd through the plain
+# version rounds each op's gradient to bf16; the bound
+# tests/test_mixed_precision.py holds the bf16 band path to.
+BF16_FWD_TOL = 1e-2
+BF16_BWD_TOL = 4e-2
+# options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml with mixed_precision: bf16
+# kept, and the other cuts of CUTS
+EDVR_M_MP_OPT = dict(EDVR_M_TRAIN_OPT, train=dict(EDVR_M_TRAIN_OPT['train'],
+                                                 mixed_precision='bf16'))
+MP_CUTS = CUTS[1:]
+# the bf16 step against the fp32 step on the card, from the golden weights
+# and one batch over two steps (TSA off, so every parameter moves): the
+# loss per element and the parameters within the bounds of
+# tests/test_mixed_precision.py:59-68 with the YAML's lr of 4e-4. Neither
+# sees the gradient (an Adam step moves a parameter by about lr whatever
+# its gradient), so the gate is the first step's gradient: |g - g32| /
+# |g32| (L2 norms) over all parameters, and the cosine of g and g32 for
+# each parameter tensor; the bounds of tests/test_torch_bf16.py (sound
+# runs read 2.5e-3-2.4e-2 and cosines >= 0.87; 1.5 x the gradient reads
+# 0.5, a negated one 2, a dropped tensor cosine 0)
+MP_LOSS_TOL = 5e-3
+MP_PARAM_TOL = 4 * 4e-4
+MP_GRAD_TOL = 5e-2
+MP_LEAF_COS_MIN = 0.5
+# ablation variants vs their plain versions (ops/dcn_ablate.py), relative
+# to max|out|: float32 the same products in another order; bf16 one
+# output ulp
+ABLATE_TOL = {'fp32': 1e-5, 'bf16': 1e-2}
+
 
 class Phase:
     """Times a block and prints one flushed JSON line when it ends."""
@@ -204,20 +261,6 @@ class Phase:
         return False
 
 
-def cuda_ms(fn, iters):
-    """Mean ms of ``fn`` over ``iters`` launches by CUDA events, warm."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def dcn_inputs(h, w, gen, n=5, c=64, dg=8, K=9):
     """Seeded DCN inputs of one EDVR-M level; 5% of the offsets lie
     10-25 px away, beyond any window a banded kernel would assume."""
@@ -236,14 +279,15 @@ def dcn_inputs(h, w, gen, n=5, c=64, dg=8, K=9):
 
 def dcn_bound(x, off, mask, weight, bias):
     """Least time the card could take: compulsory bytes over the memory
-    rate vs fp32 operations over the fp32 peak, the larger."""
+    rate vs operations over the peak of the inputs' dtype, the larger."""
     n, cin, h, w = x.shape
     cout = weight.shape[0]
     K = weight.shape[2] * weight.shape[3]
     flops = 2 * n * h * w * cout * cin * K
-    nbytes = 4 * (x.numel() + off.numel() + mask.numel() + weight.numel()
-                  + bias.numel() + n * cout * h * w)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    nbytes = x.element_size() * (
+        x.numel() + off.numel() + mask.numel() + weight.numel()
+        + bias.numel() + n * cout * h * w)
+    t_ops, t_bytes = flops / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
 
@@ -256,16 +300,40 @@ def dcn_bwd_bound(x, off, mask, weight):
     cout = weight.shape[0]
     K = weight.shape[2] * weight.shape[3]
     flops = 2 * 2 * n * h * w * cout * cin * K
-    nbytes = 4 * 2 * (x.numel() + off.numel() + mask.numel()
-                      + weight.numel()) + 4 * n * cout * h * w
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    nbytes = x.element_size() * (
+        2 * (x.numel() + off.numel() + mask.numel() + weight.numel())
+        + n * cout * h * w)
+    t_ops, t_bytes = flops / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
 
 
 def rel_err(got, want):
+    got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
             ).item()
+
+
+def grad_gaps(got, want):
+    """|got - want| / |want| (L2 norms) over every parameter tensor
+    together, and the cosine of got and want for each one (0 where either
+    is 0)."""
+    num = den = 0.0
+    cosines = {}
+    for n, w in want.items():
+        g, w = got[n].double().ravel(), w.double().ravel()
+        num += (g - w).square().sum().item()
+        den += w.square().sum().item()
+        cosines[n] = (g @ w / (g.norm() * w.norm()).clamp_min(1e-300)
+                      ).item()
+    return (num / den) ** 0.5, cosines
+
+
+def launch_counts(**counts):
+    """The launch counts of a path: the given kernel entries, every other
+    entry of ``native.LAUNCHES`` 0."""
+    from edvr_tpu_torch import native
+    return {k: counts.get(k, 0) for k in native.LAUNCHES}
 
 
 def load_golden():
@@ -375,7 +443,7 @@ def blend_bound(g_cat, cs_cat, wexp_g, out_prev):
     flops = 2 * NP * width * cout
     nbytes = 4 * (g_cat.numel() + cs_cat.numel() + wexp_g.numel()
                   + 2 * out_prev.numel())
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
 
@@ -461,6 +529,62 @@ def fp64_check(grads, ref, names):
     the latter's largest entry, for each run in ``grads``."""
     return {n: {dev: rel_err(g[n].double(), ref[n])
                 for dev, g in grads.items()} for n in names}
+
+
+def kernel_category(name):
+    """The category of a CUDA kernel, by its name in a profiler trace."""
+    low = name.lower()
+    for key in ('dcn_fwd', 'dcn_bwd_data', 'dcn_bwd_weight'):
+        if key in low:
+            return key
+    for category, keys in (
+            ('layout_convert', ('nchwtonhwc', 'nhwctonchw')),
+            ('optimizer', ('multi_tensor', 'adam')),
+            ('conv_wgrad', ('wgrad',)), ('conv_dgrad', ('dgrad',)),
+            ('conv_fprop_gemm', ('conv', 'cudnn', 'xmma', 'gemm', 'fprop',
+                                 'winograd', 'implicit')),
+            ('reduction', ('reduce',)),
+            ('elementwise', ('elementwise', 'vectorized'))):
+        if any(k in low for k in keys):
+            return category
+    return 'other'
+
+
+def profile_steps(step, steps):
+    """``steps`` calls of ``step`` under torch.profiler: kernel ms per step
+    by category, launches per step, the top kernels, and the device's busy
+    share of the profiled wall time (the profiler's own host overhead
+    lowers it)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = osp.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    by_cat, by_name = {}, {}
+    for e in kernels:
+        cat = kernel_category(e['name'])
+        by_cat[cat] = by_cat.get(cat, 0.) + e['dur']
+        by_name[e['name'][:90]] = by_name.get(e['name'][:90], 0.) + e['dur']
+    busy = sum(by_cat.values())
+    per_step = lambda d: {k: v / steps / 1e3 for k, v in sorted(
+        d.items(), key=lambda kv: -kv[1])}
+    return dict(steps=steps, launches_per_step=len(kernels) / steps,
+                kernel_ms_per_step=busy / steps / 1e3,
+                wall_ms_per_step=wall_us / steps / 1e3,
+                busy_share_profiled=busy / wall_us,
+                ms_per_step_by_category=per_step(by_cat),
+                top_kernels_ms_per_step=dict(list(per_step(by_name)
+                                                  .items())[:10]))
 
 
 def step_grads(model, batch, it):
@@ -567,8 +691,7 @@ def main():
         launches = dict(dcn.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
 
-        if launches != {'dcn_fwd': 4 * T, 'dcn_bwd': 0, 'row_gather': 0,
-                        'blend_matmul': 0}:
+        if launches != launch_counts(dcn_fwd=4 * T):
             raise AssertionError(f'main path launches {launches}, expected '
                                  f'dcn_fwd 4 x {T} windows and no other')
         psnr = model.metric_results['000'][:, 0]
@@ -713,8 +836,7 @@ def main():
         peak = torch.cuda.max_memory_allocated()
         if not all(np.isfinite(losses)):
             raise AssertionError(f'training losses not finite: {losses}')
-        if any(c != {'dcn_fwd': 4, 'dcn_bwd': 4, 'row_gather': 0,
-                     'blend_matmul': 0} for c in per_step):
+        if any(c != launch_counts(dcn_fwd=4, dcn_bwd=4) for c in per_step):
             raise AssertionError(f'DCN launches per step: {per_step}')
 
         # one batch-1 step's gradients: the card against the plain CPU path
@@ -871,8 +993,7 @@ def main():
 
         # 8 deformable groups: one gather and one blend each per DCN call,
         # 4 DCN calls per window
-        expect = {'dcn_fwd': 0, 'dcn_bwd': 0, 'row_gather': 32 * T2,
-                  'blend_matmul': 32 * T2}
+        expect = launch_counts(row_gather=32 * T2, blend_matmul=32 * T2)
         if packed_launches != expect:
             raise AssertionError(f'packed main path launches '
                                  f'{packed_launches}, expected {expect}')
@@ -940,8 +1061,8 @@ def main():
         if not all(np.isfinite(losses)):
             raise AssertionError(f'packed training losses not finite: '
                                  f'{losses}')
-        if any(c != {'dcn_fwd': 0, 'dcn_bwd': 0, 'row_gather': 32,
-                     'blend_matmul': 32} for c in per_step):
+        if any(c != launch_counts(row_gather=32, blend_matmul=32)
+               for c in per_step):
             raise AssertionError(f'packed launches per step: {per_step}')
 
         # one batch-1 step's gradients: the packed route against the
@@ -1006,8 +1127,7 @@ def main():
         peak = torch.cuda.max_memory_allocated()
         if not all(np.isfinite(losses)):
             raise AssertionError(f'tap_shared losses not finite: {losses}')
-        if any(c != {'dcn_fwd': 4, 'dcn_bwd': 4, 'row_gather': 0,
-                     'blend_matmul': 0} for c in per_step):
+        if any(c != launch_counts(dcn_fwd=4, dcn_bwd=4) for c in per_step):
             raise AssertionError(f'tap_shared launches per step: {per_step}')
 
         one = {k: v[:1] for k, v in batches[-1].items()}
@@ -1065,6 +1185,284 @@ def main():
             grad_vs_cpu_top5=top5, grad_vs_fp64=tap_fp64,
             grad_tol=STEP_GRAD_TOL, sample_coords=tap_coords, card=smi)
         del model, cpu_model
+
+    bf16 = torch.bfloat16
+    bf16_fwd, bf16_bwd = {}, {}
+    levels = [(lv, hw, 5) for lv, hw in LEVELS.items()]
+    levels += [(f'train_{lv}', hw, TRAIN_N) for lv, hw in TRAIN_LEVELS.items()]
+    for level, (h, w), n in levels:
+        with Phase(f'kernel_bf16_{level}') as ph:
+            args32 = dcn_inputs(h, w, gen, n=n)
+            args = [a.to(bf16) for a in args32]
+            geo = (1, 1, 1)  # stride, padding, dilation
+            with torch.no_grad():
+                got = dcn.dcn_fwd_cuda(*args, *geo, 8)
+                want = dcn.modulated_deform_conv_plain(*args, *geo, 1, 8)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            if not (got.dtype == bf16 and err <= BF16_FWD_TOL):
+                raise AssertionError(f'dcn_fwd_bf16 {level}: {got.dtype}, '
+                                     f'rel err {err} > {BF16_FWD_TOL}')
+            ms = cuda_ms(lambda: dcn.dcn_fwd_cuda(*args, *geo, 8), 20)
+            with torch.no_grad():
+                plain_ms = cuda_ms(lambda: dcn.modulated_deform_conv_plain(
+                    *args, *geo, 1, 8), 5)
+            fp32_ms = cuda_ms(lambda: dcn.dcn_fwd_cuda(*args32, *geo, 8), 20)
+            bound_ms, bound_by, flops, nbytes = dcn_bound(*args)
+            bf16_fwd[level] = dict(
+                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                rel_err=err, ms=ms, plain_ms=plain_ms, fp32_ms=fp32_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            ph.info.update(shape=list(args[0].shape), dtype='bf16',
+                           tol_rel_to_max_out=BF16_FWD_TOL,
+                           gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                           **bf16_fwd[level], card=smi)
+            if n == TRAIN_N:  # the training shapes: the backward too
+                dout = torch.randn(want.shape, generator=gen).cuda().to(bf16)
+                got = dcn.dcn_bwd_cuda(dout, *args[:4], *geo, 8)
+                leaves = [a.clone().requires_grad_() for a in args[:4]]
+                plain_out = dcn.modulated_deform_conv_plain(
+                    *leaves, args[4], *geo, 1, 8)
+                want = torch.autograd.grad(plain_out, leaves, dout,
+                                           retain_graph=True)
+                # the gradient at the same bf16 values in float32, for
+                # reference (not gated)
+                leaves32 = [a.float().requires_grad_() for a in args[:4]]
+                exact = torch.autograd.grad(
+                    dcn.modulated_deform_conv_plain(
+                        *leaves32, args[4].float(), *geo, 1, 8),
+                    leaves32, dout.float())
+                torch.cuda.synchronize()
+                errs = {}
+                for name, g, w_, e in zip(('dx', 'd_offset', 'd_mask',
+                                           'd_weight'), got, want, exact):
+                    errs[name] = dict(rel_err=rel_err(g, w_),
+                                      rel_err_vs_f32=rel_err(g, e),
+                                      plain_rel_err_vs_f32=rel_err(w_, e))
+                    if not (g.dtype == bf16 and g.shape == w_.shape
+                            and torch.isfinite(g.float()).all()
+                            and errs[name]['rel_err'] <= BF16_BWD_TOL):
+                        raise AssertionError(f'dcn_bwd_bf16 {level} {name}: '
+                                             f'{errs[name]} > {BF16_BWD_TOL}')
+                bms = cuda_ms(lambda: dcn.dcn_bwd_cuda(dout, *args[:4], *geo,
+                                                       8), 20)
+                bplain_ms = cuda_ms(lambda: torch.autograd.grad(
+                    plain_out, leaves, dout, retain_graph=True), 5)
+                dout32 = dout.float()
+                bfp32_ms = cuda_ms(lambda: dcn.dcn_bwd_cuda(
+                    dout32, *args32[:4], *geo, 8), 20)
+                b_bound_ms, b_bound_by, b_flops, b_nbytes = dcn_bwd_bound(
+                    *args[:4])
+                bf16_bwd[level] = dict(
+                    max_abs_err=max((g.float() - w_.float()).abs().max()
+                                    .item() for g, w_ in zip(got, want)),
+                    ms=bms, plain_ms=bplain_ms, fp32_ms=bfp32_ms,
+                    bound_ms=b_bound_ms, bound_by=b_bound_by)
+                ph.info.update(bwd=dict(bf16_bwd[level], gradients=errs,
+                                        tol_rel_to_max=BF16_BWD_TOL,
+                                        gflop=b_flops / 1e9,
+                                        mbytes=b_nbytes / 1e6))
+                del leaves, leaves32, plain_out, want, exact, got
+            del args, args32
+
+    with Phase('mp_train') as ph, tempfile.TemporaryDirectory() as tmp:
+        ckpt = osp.join(tmp, 'edvr_m_golden.pth')
+        torch.save({'params': state}, ckpt)
+
+        def mp_model(mixed_precision='bf16', tsa_iter=TSA_ITER):
+            opt = parse_dict(json.loads(json.dumps(EDVR_M_MP_OPT)),
+                             is_train=True, root=tmp)
+            opt['train'].update(mixed_precision=mixed_precision,
+                                tsa_iter=tsa_iter)
+            opt['device'] = 'cuda'
+            opt['path']['pretrain_network_g'] = ckpt
+            return create_model(opt)
+
+        model = mp_model()
+        batches = train_batches(gen, TRAIN_STEPS, BATCH,
+                                random.Random(SEED + 3))
+        params = dict(model.net_g.named_parameters())
+
+        def snapshot():
+            return {n: p.detach().clone() for n, p in params.items()}
+
+        losses, step_secs, per_step = [], [], []
+        before = snapshot()
+        dcn.LAUNCHES.update({k: 0 for k in dcn.LAUNCHES})
+        for it, batch in enumerate(batches, 1):
+            if it == TSA_ITER:  # warm-up over: only fusion.* has moved
+                now = snapshot()
+                frozen_moved = [n for n in params if 'fusion' not in n
+                                and not torch.equal(now[n], before[n])]
+                fusion_still = [n for n in params if 'fusion' in n
+                                and torch.equal(now[n], before[n])]
+                if frozen_moved or fusion_still:
+                    raise AssertionError(
+                        f'mp TSA warm-up: frozen parameters moved '
+                        f'{frozen_moved[:3]}, fusion parameters did not '
+                        f'{fusion_still[:3]}')
+                before = now
+            if it == 4:  # cuDNN has chosen its algorithms: time from here
+                torch.cuda.reset_peak_memory_stats()
+            counts = dict(dcn.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+            torch.cuda.synchronize()
+            step_secs.append(time.perf_counter() - t0)
+            per_step.append({k: dcn.LAUNCHES[k] - counts[k] for k in counts})
+            losses.append(float(model.log_dict['l_pix']))
+            if it == TSA_ITER:  # the first step after the warm-up
+                now = snapshot()
+                still = [n for n in params if torch.equal(now[n], before[n])]
+                if still:
+                    raise AssertionError(f'mp: after tsa_iter parameters '
+                                         f'did not move: {still[:3]}')
+        mp_launches = dict(dcn.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f'mp training losses not finite: {losses}')
+        if any(c != launch_counts(dcn_fwd_bf16=4, dcn_bwd_bf16=4)
+               for c in per_step):
+            raise AssertionError(f'mp DCN launches per step: {per_step}')
+        opt_state = model.optimizer_g.state
+        not_f32 = [n for n, p in params.items()
+                   if p.dtype != torch.float32 or p.grad.dtype != torch.float32
+                   or opt_state[p]['exp_avg'].dtype != torch.float32
+                   or opt_state[p]['exp_avg_sq'].dtype != torch.float32]
+        if not_f32 or model.output.dtype != torch.float32:
+            raise AssertionError(f'mp: not f32 master state: {not_f32[:3]}, '
+                                 f'output {model.output.dtype}')
+        timed = sorted(step_secs[3:])
+        mp_step_ms = timed[len(timed) // 2] * 1e3
+        # where the step's time goes: 3 more steps under the profiler
+        mp_profile = profile_steps(
+            lambda: (model.feed_data(batches[-1]),
+                     model.optimize_parameters(TRAIN_STEPS + 1)), 3)
+        mp_profile['busy_share_of_median_step'] = (
+            mp_profile['kernel_ms_per_step'] / mp_step_ms)
+        del model, params, before
+
+        # the bf16 step against the fp32 step, from the golden weights and
+        # one batch, two steps each, every parameter learning; the first
+        # step's gradients kept
+        one = batches[0]
+        numel = one['gt'].numel()
+        runs, grads = {}, {}
+        for mp in ('bf16', None):
+            m = mp_model(mp, tsa_iter=None)
+            run_losses = []
+            for it in (1, 2):
+                m.feed_data(one)
+                m.optimize_parameters(it)
+                run_losses.append(float(m.log_dict['l_pix']))
+                if it == 1:
+                    grads[mp] = {n: p.grad.clone() for n, p in
+                                 m.net_g.named_parameters()}
+            runs[mp] = (run_losses, {n: p.detach().clone() for n, p in
+                                     m.net_g.named_parameters()})
+            del m
+        # for scale, another batch's fp32 gradient: at the golden weights
+        # on these synthetic clips it reads about as close as bf16's does
+        m = mp_model(None, tsa_iter=None)
+        m.feed_data(batches[1])
+        m.optimize_parameters(1)
+        other_batch = grad_gaps({n: p.grad for n, p in
+                                 m.net_g.named_parameters()}, grads[None])
+        del m
+        grad_total, grad_cos = grad_gaps(grads['bf16'], grads[None])
+        worst_g = min(grad_cos, key=grad_cos.get)
+        negated = grad_gaps({n: -g for n, g in grads['bf16'].items()},
+                            grads[None])[0]
+        loss_gaps = [abs(a - b) / numel for a, b in zip(runs['bf16'][0],
+                                                        runs[None][0])]
+        param_gaps = {n: (p - runs[None][1][n]).abs().max().item()
+                      for n, p in runs['bf16'][1].items()}
+        worst_p = max(param_gaps, key=param_gaps.get)
+        if not (grad_total <= MP_GRAD_TOL
+                and grad_cos[worst_g] >= MP_LEAF_COS_MIN
+                and max(loss_gaps) <= MP_LOSS_TOL
+                and param_gaps[worst_p] <= MP_PARAM_TOL):
+            raise AssertionError(
+                f'bf16 vs fp32 step: gradient gap {grad_total} (tol '
+                f'{MP_GRAD_TOL}), {worst_g} cosine {grad_cos[worst_g]} '
+                f'(least {MP_LEAF_COS_MIN}); loss per element gaps '
+                f'{loss_gaps} '
+                f'(tol {MP_LOSS_TOL}), {worst_p} {param_gaps[worst_p]} '
+                f'(tol {MP_PARAM_TOL})')
+        ph.info.update(
+            steps=TRAIN_STEPS, batch=BATCH, lq_crop=64, gt_crop=256,
+            pcd_n=TRAIN_N, mixed_precision='bf16', cuts=MP_CUTS,
+            losses=losses, dcn_launches=mp_launches,
+            launches_per_step=per_step[0], ms_per_step_median=mp_step_ms,
+            ms_per_step_all=[t * 1e3 for t in step_secs],
+            peak_mem_bytes=peak, master_state='float32', profile=mp_profile,
+            vs_fp32=dict(steps=2, tsa_iter=None,
+                         grad_gap=grad_total, grad_tol=MP_GRAD_TOL,
+                         grad_least_cosine=[worst_g, grad_cos[worst_g]],
+                         grad_cosine_min=MP_LEAF_COS_MIN,
+                         grad_gap_negated=negated,
+                         grad_gap_other_batch=other_batch[0],
+                         grad_least_cosine_other_batch=min(
+                             other_batch[1].values()),
+                         losses_bf16=runs['bf16'][0],
+                         losses_fp32=runs[None][0],
+                         loss_per_element_gaps=loss_gaps,
+                         loss_tol=MP_LOSS_TOL,
+                         param_worst=[worst_p, param_gaps[worst_p]],
+                         param_tol=MP_PARAM_TOL),
+            card=smi)
+        del runs, grads
+
+    from edvr_tpu_torch.ops import dcn_ablate
+    from edvr_tpu_torch.tools import ablate_dcn
+
+    ablate_results = {}
+    with Phase('ablate_l1') as ph, torch.no_grad():
+        checks = {}
+        for dname in ('fp32', 'bf16'):
+            args = ablate_dcn.make_inputs('l1', ablate_dcn.DTYPES[dname],
+                                          SEED)
+            for mode in dcn_ablate.MODES:
+                got = dcn_ablate.ablate_cuda(mode, *args, None, 1, 1, 1, 8)
+                want = dcn_ablate.ablate_plain(mode, *args, None, 1, 1, 1, 8)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                if not (got.dtype == want.dtype and err <= ABLATE_TOL[dname]):
+                    raise AssertionError(f'ablate {mode} {dname}: rel err '
+                                         f'{err} > {ABLATE_TOL[dname]}')
+                plain_ms = cuda_ms(lambda: dcn_ablate.ablate_plain(
+                    mode, *args, None, 1, 1, 1, 8), 3)
+                checks[mode, dname] = dict(
+                    rel_err=err,
+                    max_abs_err=(got.float() - want.float()).abs().max()
+                    .item(), plain_ms=plain_ms)
+            del args, got, want
+        # the tool's timing table: its launches are the path's
+        dcn.LAUNCHES.update({k: 0 for k in dcn.LAUNCHES})
+        table = {d: ablate_dcn.run(d, 'l1', SEED, 20) for d in ('fp32',
+                                                                'bf16')}
+        torch.cuda.synchronize()
+        ablate_launches = dict(dcn.LAUNCHES)
+        if ablate_launches != launch_counts(**{
+                f'dcn_fwd_ablate_{m}_{d}': 21 for m in dcn_ablate.MODES
+                for d in ('f32', 'bf16')}):
+            raise AssertionError(f'ablation launches {ablate_launches}')
+        for dname, rows in table.items():
+            for row in rows:
+                key = (row['variant'], dname)
+                suffix = {'fp32': 'f32', 'bf16': 'bf16'}[dname]
+                ablate_results[key] = dict(
+                    row, **checks[key],
+                    launches=ablate_launches[
+                        f"dcn_fwd_ablate_{row['variant']}_{suffix}"])
+                print(json.dumps(dict(ablate_results[key], card=smi)),
+                      flush=True)
+        print(json.dumps(ablate_dcn.NO_COUNTERPART), flush=True)
+        ph.info.update(shape='l1', tol=ABLATE_TOL, card=smi,
+                       ms={f'{m}_{d}': r['ms']
+                           for (m, d), r in ablate_results.items()})
 
     l1 = results['L1']
     kernel = {'name': 'dcn_fwd', 'route': 'cuda',
@@ -1144,8 +1542,57 @@ def main():
                                   f'library_ms_{tag}': r['library_ms']})
     kernel['launches_tapshared_train'] = tap_launches['dcn_fwd']
     kernel_bwd['launches_tapshared_train'] = tap_launches['dcn_bwd']
+    # the bf16 entries: their main path is the mixed-precision training
+    # step (mp_train); ms at inference L1 (forward) and training L1
+    # (backward), as the fp32 entries
+    f1 = bf16_fwd['L1']
+    kernel_fwd_bf16 = {
+        'name': 'dcn_fwd_bf16', 'route': 'cuda',
+        'source': 'edvr_tpu_torch/csrc/dcn_fwd.cu',
+        'replaces': 'edvr_tpu/ops/dcn_band.py:281',
+        'replaces_function': 'edvr_tpu/ops/dcn_band.py::band_forward (bf16)',
+        'launches': mp_launches['dcn_fwd_bf16'],
+        'max_abs_err': max(r['max_abs_err'] for r in bf16_fwd.values()),
+        'ms': f1['ms'], 'plain_ms': f1['plain_ms'],
+        'bound_ms': f1['bound_ms'], 'bound_by': f1['bound_by'],
+        'library_ms': None}
+    for level, r in bf16_fwd.items():
+        kernel_fwd_bf16.update({f'ms_{level}': r['ms'],
+                                f'fp32_ms_{level}': r['fp32_ms'],
+                                f'plain_ms_{level}': r['plain_ms'],
+                                f'bound_ms_{level}': r['bound_ms']})
+    b1 = bf16_bwd['train_L1']
+    kernel_bwd_bf16 = {
+        'name': 'dcn_bwd_bf16', 'route': 'cuda',
+        'source': 'edvr_tpu_torch/csrc/dcn_bwd.cu',
+        'replaces': 'edvr_tpu/ops/dcn_band.py:608',
+        'replaces_function':
+            'edvr_tpu/ops/dcn_band.py::band_backward (bf16)',
+        'launches': mp_launches['dcn_bwd_bf16'],
+        'max_abs_err': max(r['max_abs_err'] for r in bf16_bwd.values()),
+        'ms': b1['ms'], 'plain_ms': b1['plain_ms'],
+        'bound_ms': b1['bound_ms'], 'bound_by': b1['bound_by'],
+        'library_ms': None}
+    for level, r in bf16_bwd.items():
+        kernel_bwd_bf16.update({f'ms_{level}': r['ms'],
+                                f'fp32_ms_{level}': r['fp32_ms'],
+                                f'plain_ms_{level}': r['plain_ms'],
+                                f'bound_ms_{level}': r['bound_ms']})
+    # the ablation variants: their main path is the timing tool's run
+    kernels_ablate = [
+        {'name': f'dcn_fwd_ablate_{mode}_{dname}', 'route': 'cuda',
+         'source': 'edvr_tpu_torch/csrc/dcn_fwd.cu',
+         'replaces': 'scripts/dev/ablate_band.py:196',
+         'replaces_function': 'scripts/dev/ablate_band.py::build_variant',
+         'launches': r['launches'], 'max_abs_err': r['max_abs_err'],
+         'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+         'bound_by': r['bound_by'], 'library_ms': None,
+         'saved_ms': r['saved_ms'], 'shape': 'l1'}
+        for (mode, dname), r in ablate_results.items()]
     print(json.dumps({'kernels': [kernel, kernel_bwd, kernel_blend,
-                                  kernel_gather]}), flush=True)
+                                  kernel_gather, kernel_fwd_bf16,
+                                  kernel_bwd_bf16, *kernels_ablate]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

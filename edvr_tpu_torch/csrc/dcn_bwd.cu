@@ -1,5 +1,5 @@
-// Modulated deformable convolution (DCNv2) backward, fp32, for Hopper
-// (sm_90a).
+// Modulated deformable convolution (DCNv2) backward, fp32 and bf16, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel edvr_tpu/ops/dcn_band.py::band_backward together
 // with its XLA partners fold_windows and outlier_patch_bwd (all three wired
@@ -14,7 +14,14 @@
 //   dmask    sum_c dcol * sample;
 //   dW       sum over every image and pixel of dout x masked column,
 //
-// where dcol = W^T . dout is the column gradient. floor() has no gradient
+// where dcol = W^T . dout is the column gradient. In bf16 (x, offset,
+// mask, weights and dout in bf16) every sum and product is float32: dcol,
+// d_offset and d_mask in float32 (the latter two stored in bf16), dx
+// scattered with float32 atomics into a float32 buffer that the caller
+// casts (bf16 atomics would lose the sum), dW summed from float32
+// partials; the weight gradient contracts the column the bf16 forward
+// contracted (dcn_common.cuh::masked_column, with its rounding points).
+// floor() has no gradient
 // and corner validity is a step, so the derivative at an exactly integer
 // coordinate follows the same floor convention as the plain version
 // (edvr_tpu_torch/ops/dcn.py::modulated_deform_conv_plain).
@@ -25,7 +32,8 @@
 // FMA work, 0.18 ms at 67 TFLOP/s, against ~205 MB of compulsory traffic
 // (x, offset, mask, dout read once; dx, doffset, dmask written once),
 // 0.06 ms at 3.35 TB/s. So, like the forward, it is bounded by the fp32
-// pipe.
+// pipe; in bf16 the operations would take 0.012 ms on the tensor cores
+// and the traffic about half, 0.03 ms, so there bytes bound it.
 //
 // Two launches, both with their products inside the kernel body:
 //
@@ -49,73 +57,28 @@
 //     workspace. The caller's sum over partials is the cross-block second
 //     pass: deterministic, and a few MB at these shapes.
 
-#include <cuda_runtime.h>
+#include "dcn_common.cuh"
 
 namespace {
+
+using dcn::from_f32;
+using dcn::to_f32;
 
 constexpr int TP = 64;        // pixels per tile
 constexpr int TO = 64;        // output channels per chunk
 constexpr int TOS = TO + 4;   // padded row of the transposed dout tile
 constexpr int THREADS = 256;  // 16 x 16
 
-// Geometry of one (tap, pixel) sample: the bilinear fractions and which
-// of the four corners lie inside the image. Validity is decided in float
-// before any integer conversion, as the forward does, so offsets of any
-// magnitude stay exact; y0/x0 are set only when some corner is valid.
-struct Sample {
-  float fy, fx, m;
-  bool v00, v01, v10, v11;
-  int y0, x0;
-  bool any;
-};
-
-__device__ __forceinline__ Sample sample_at(const float* offb, const float* mb,
-                                            int g, int k, int p, int P, int K,
-                                            int oy, int ox, int kw, int h,
-                                            int w, int stride, int pad,
-                                            int dil) {
-  Sample s;
-  const int i = k / kw, j = k % kw;
-  const float dy = offb[(size_t)(g * 2 * K + 2 * k) * P + p];
-  const float dx = offb[(size_t)(g * 2 * K + 2 * k + 1) * P + p];
-  s.m = mb[(size_t)(g * K + k) * P + p];
-  const float cy = (float)(oy * stride - pad + i * dil) + dy;
-  const float cx = (float)(ox * stride - pad + j * dil) + dx;
-  const float y0f = floorf(cy), x0f = floorf(cx);
-  s.fy = cy - y0f;
-  s.fx = cx - x0f;
-  const bool vy0 = y0f >= 0.f && y0f <= (float)(h - 1);
-  const bool vy1 = y0f >= -1.f && y0f <= (float)(h - 2);
-  const bool vx0 = x0f >= 0.f && x0f <= (float)(w - 1);
-  const bool vx1 = x0f >= -1.f && x0f <= (float)(w - 2);
-  s.v00 = vy0 && vx0;
-  s.v01 = vy0 && vx1;
-  s.v10 = vy1 && vx0;
-  s.v11 = vy1 && vx1;
-  s.any = (vy0 || vy1) && (vx0 || vx1);
-  s.y0 = s.any ? (int)y0f : 0;
-  s.x0 = s.any ? (int)x0f : 0;
-  return s;
-}
-
-// CV consecutive channels of one corner (zeros when the corner is out).
-template <int CV>
-__device__ __forceinline__ void load_corner(const float* src, bool ok,
-                                            float* v) {
+// CV consecutive channels of one corner as floats (zeros when the corner
+// is out).
+template <typename T, int CV>
+__device__ __forceinline__ void load_corner(const T* src, bool ok, float* v) {
   if (!ok) {
 #pragma unroll
     for (int e = 0; e < CV; ++e) v[e] = 0.f;
     return;
   }
-  if constexpr (CV == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(src));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else if constexpr (CV == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(src));
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = __ldg(src);
-  }
+  dcn::load_f32<T, CV>(src, v);
 }
 
 // dst[e] += g[e] * wgt for CV consecutive channels of one corner: one
@@ -135,16 +98,16 @@ __device__ __forceinline__ void scatter_corner(float* dst, const float* g,
   }
 }
 
-template <int C_PER, int K>
+template <typename T, int C_PER, int K>
 __global__ void __launch_bounds__(THREADS)
-dcn_bwd_data_kernel(const float* __restrict__ x,       // (n, h, w, cin)
-                    const float* __restrict__ offset,  // (n, dg*2K, oh, ow)
-                    const float* __restrict__ mask,    // (n, dg*K, oh, ow)
-                    const float* __restrict__ wt,      // (dg, K, C_PER, cout)
-                    const float* __restrict__ dout,    // (n, cout, oh, ow)
-                    float* __restrict__ dx,            // (n, h, w, cin), zeroed
-                    float* __restrict__ doffset,       // (n, dg*2K, oh, ow)
-                    float* __restrict__ dmask,         // (n, dg*K, oh, ow)
+dcn_bwd_data_kernel(const T* __restrict__ x,       // (n, h, w, cin)
+                    const T* __restrict__ offset,  // (n, dg*2K, oh, ow)
+                    const T* __restrict__ mask,    // (n, dg*K, oh, ow)
+                    const T* __restrict__ wt,      // (dg, K, C_PER, cout)
+                    const T* __restrict__ dout,    // (n, cout, oh, ow)
+                    float* __restrict__ dx,        // (n, h, w, cin), zeroed
+                    T* __restrict__ doffset,       // (n, dg*2K, oh, ow)
+                    T* __restrict__ dmask,         // (n, dg*K, oh, ow)
                     int h, int w, int cin, int cout, int oh, int ow, int kw,
                     int stride, int pad, int dil, int dg) {
   constexpr int KC = K * C_PER;
@@ -173,16 +136,17 @@ dcn_bwd_data_kernel(const float* __restrict__ x,       // (n, h, w, cin)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
 
-  const float* wg = wt + (size_t)g * KC * cout;
-  const float* doutb = dout + (size_t)b * cout * P;
+  const T* wg = wt + (size_t)g * KC * cout;
+  const T* doutb = dout + (size_t)b * cout * P;
   for (int o0 = 0; o0 < cout; o0 += TO) {
     for (int i = tid; i < KCP * TO; i += THREADS) {
       const int kc = i / TO, o = o0 + i % TO;
-      w_s[i] = (kc < KC && o < cout) ? wg[(size_t)kc * cout + o] : 0.f;
+      w_s[i] = (kc < KC && o < cout) ? to_f32(wg[(size_t)kc * cout + o])
+                                     : 0.f;
     }
     for (int i = tid; i < TO * TP; i += THREADS) {
       const int o = o0 + i / TP, p = p0 + i % TP;
-      d_s[i] = (o < cout && p < P) ? doutb[(size_t)o * P + p] : 0.f;
+      d_s[i] = (o < cout && p < P) ? to_f32(doutb[(size_t)o * P + p]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -210,18 +174,20 @@ dcn_bwd_data_kernel(const float* __restrict__ x,       // (n, h, w, cin)
 
   // ---- per (tap, pixel): dx scatter, doffset and dmask ----
   const long long plane = (long long)h * w * cin;
-  const float* xg = x + b * plane + g * C_PER;
+  const T* xg = x + b * plane + g * C_PER;
   float* dxg = dx + b * plane + g * C_PER;
-  const float* offb = offset + (size_t)b * dg * 2 * K * P;
-  const float* mb = mask + (size_t)b * dg * K * P;
-  float* doffb = doffset + (size_t)b * dg * 2 * K * P;
-  float* dmb = dmask + (size_t)b * dg * K * P;
+  const T* offb = offset + (size_t)b * dg * 2 * K * P;
+  const T* mb = mask + (size_t)b * dg * K * P;
+  T* doffb = doffset + (size_t)b * dg * 2 * K * P;
+  T* dmb = dmask + (size_t)b * dg * K * P;
   for (int q = tid; q < K * TP; q += THREADS) {
     const int pl = q % TP, k = q / TP;
     const int p = p0 + pl;
     if (p >= P) continue;
-    const Sample s = sample_at(offb, mb, g, k, p, P, K, p / ow, p % ow, kw, h,
-                               w, stride, pad, dil);
+    const dcn::Sample s = dcn::sample_at(offb, mb, g, k, p, P, K, p / ow,
+                                         p % ow, kw, h, w, stride, pad, dil);
+    const bool ok00 = s.vy0 && s.vx0, ok01 = s.vy0 && s.vx1;
+    const bool ok10 = s.vy1 && s.vx0, ok11 = s.vy1 && s.vx1;
     float gm = 0.f, gy = 0.f, gx = 0.f;
     if (s.any) {
       const float fy = s.fy, fx = s.fx, m = s.m;
@@ -234,10 +200,10 @@ dcn_bwd_data_kernel(const float* __restrict__ x,       // (n, h, w, cin)
 #pragma unroll
       for (int c0 = 0; c0 < C_PER; c0 += CV) {
         float v00[CV], v01[CV], v10[CV], v11[CV];
-        load_corner<CV>(xg + i00 + c0, s.v00, v00);
-        load_corner<CV>(xg + i01 + c0, s.v01, v01);
-        load_corner<CV>(xg + i10 + c0, s.v10, v10);
-        load_corner<CV>(xg + i11 + c0, s.v11, v11);
+        load_corner<T, CV>(xg + i00 + c0, ok00, v00);
+        load_corner<T, CV>(xg + i01 + c0, ok01, v01);
+        load_corner<T, CV>(xg + i10 + c0, ok10, v10);
+        load_corner<T, CV>(xg + i11 + c0, ok11, v11);
         float dm[CV];
 #pragma unroll
         for (int e = 0; e < CV; ++e) {
@@ -251,31 +217,30 @@ dcn_bwd_data_kernel(const float* __restrict__ x,       // (n, h, w, cin)
           gx = fmaf(dm[e], (1.f - fy) * (v01[e] - v00[e]) +
                                fy * (v11[e] - v10[e]), gx);
         }
-        if (s.v00) scatter_corner<CV>(dxg + i00 + c0, dm, w00);
-        if (s.v01) scatter_corner<CV>(dxg + i01 + c0, dm, w01);
-        if (s.v10) scatter_corner<CV>(dxg + i10 + c0, dm, w10);
-        if (s.v11) scatter_corner<CV>(dxg + i11 + c0, dm, w11);
+        if (ok00) scatter_corner<CV>(dxg + i00 + c0, dm, w00);
+        if (ok01) scatter_corner<CV>(dxg + i01 + c0, dm, w01);
+        if (ok10) scatter_corner<CV>(dxg + i10 + c0, dm, w10);
+        if (ok11) scatter_corner<CV>(dxg + i11 + c0, dm, w11);
       }
     }
-    dmb[(size_t)(g * K + k) * P + p] = gm;
-    doffb[(size_t)(g * 2 * K + 2 * k) * P + p] = gy;
-    doffb[(size_t)(g * 2 * K + 2 * k + 1) * P + p] = gx;
+    dmb[(size_t)(g * K + k) * P + p] = from_f32<T>(gm);
+    doffb[(size_t)(g * 2 * K + 2 * k) * P + p] = from_f32<T>(gy);
+    doffb[(size_t)(g * 2 * K + 2 * k + 1) * P + p] = from_f32<T>(gx);
   }
 }
 
-template <int C_PER, int K>
+template <typename T, int C_PER, int K>
 __global__ void __launch_bounds__(THREADS)
-dcn_bwd_weight_kernel(const float* __restrict__ x,       // (n, h, w, cin)
-                      const float* __restrict__ offset,  // (n, dg*2K, oh, ow)
-                      const float* __restrict__ mask,    // (n, dg*K, oh, ow)
-                      const float* __restrict__ dout,    // (n, cout, oh, ow)
+dcn_bwd_weight_kernel(const T* __restrict__ x,       // (n, h, w, cin)
+                      const T* __restrict__ offset,  // (n, dg*2K, oh, ow)
+                      const T* __restrict__ mask,    // (n, dg*K, oh, ow)
+                      const T* __restrict__ dout,    // (n, cout, oh, ow)
                       float* __restrict__ partial,  // (nb, dg, K*C_PER, cout)
                       int n, int h, int w, int cin, int cout, int oh, int ow,
                       int kw, int stride, int pad, int dil, int dg) {
   constexpr int KC = K * C_PER;
   constexpr int RT = (KC + 15) / 16;  // dW rows per thread
   constexpr int KCP = 16 * RT;
-  constexpr int CV = C_PER >= 4 ? 4 : C_PER;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* col_s = smem;               // [KCP][TP], rows >= KC zero
@@ -302,17 +267,18 @@ dcn_bwd_weight_kernel(const float* __restrict__ x,       // (n, h, w, cin)
   for (int t = blockIdx.x; t < total; t += gridDim.x) {
     const int b = t / tiles;
     const int p0 = (t % tiles) * TP;
-    const float* doutb = dout + (size_t)b * cout * P;
+    const T* doutb = dout + (size_t)b * cout * P;
     for (int i = tid; i < TO * TP; i += THREADS) {
       const int o = o0 + i / TP, pl = i % TP;
-      d_s[pl * TOS + i / TP] =
-          (o < cout && p0 + pl < P) ? doutb[(size_t)o * P + p0 + pl] : 0.f;
+      d_s[pl * TOS + i / TP] = (o < cout && p0 + pl < P)
+                                   ? to_f32(doutb[(size_t)o * P + p0 + pl])
+                                   : 0.f;
     }
 
     // the masked column tile, as the forward builds it
-    const float* xg = x + b * plane + g * C_PER;
-    const float* offb = offset + (size_t)b * dg * 2 * K * P;
-    const float* mb = mask + (size_t)b * dg * K * P;
+    const T* xg = x + b * plane + g * C_PER;
+    const T* offb = offset + (size_t)b * dg * 2 * K * P;
+    const T* mb = mask + (size_t)b * dg * K * P;
     for (int q = tid; q < K * TP; q += THREADS) {
       const int pl = q % TP, k = q / TP;
       const int p = p0 + pl;
@@ -320,30 +286,10 @@ dcn_bwd_weight_kernel(const float* __restrict__ x,       // (n, h, w, cin)
 #pragma unroll
       for (int c = 0; c < C_PER; ++c) v[c] = 0.f;
       if (p < P) {
-        const Sample s = sample_at(offb, mb, g, k, p, P, K, p / ow, p % ow,
-                                   kw, h, w, stride, pad, dil);
-        if (s.any) {
-          const float fy = s.fy, fx = s.fx;
-          const float wc[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx,
-                               fy * (1.f - fx), fy * fx};
-          const bool ok[4] = {s.v00, s.v01, s.v10, s.v11};
-          const long long i00 = ((long long)s.y0 * w + s.x0) * cin;
-          const long long idx[4] = {i00, i00 + cin, i00 + (long long)w * cin,
-                                    i00 + (long long)w * cin + cin};
-#pragma unroll
-          for (int corner = 0; corner < 4; ++corner) {
-            if (!ok[corner]) continue;
-#pragma unroll
-            for (int c0 = 0; c0 < C_PER; c0 += CV) {
-              float t4[CV];
-              load_corner<CV>(xg + idx[corner] + c0, true, t4);
-#pragma unroll
-              for (int e = 0; e < CV; ++e) v[c0 + e] += wc[corner] * t4[e];
-            }
-          }
-#pragma unroll
-          for (int c = 0; c < C_PER; ++c) v[c] *= s.m;
-        }
+        const dcn::Sample s = dcn::sample_at(offb, mb, g, k, p, P, K, p / ow,
+                                             p % ow, kw, h, w, stride, pad,
+                                             dil);
+        dcn::masked_column<T, C_PER>(xg, s, w, cin, v);
       }
 #pragma unroll
       for (int c = 0; c < C_PER; ++c) col_s[(k * C_PER + c) * TP + pl] = v[c];
@@ -385,69 +331,59 @@ int allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int C_PER, int K>
-int launch(const float* x, const float* offset, const float* mask,
-           const float* wt, const float* dout, float* dx, float* doffset,
-           float* dmask, float* partial, int nb, int n, int h, int w, int cin,
-           int cout, int oh, int ow, int kw, int stride, int pad, int dil,
-           int dg, cudaStream_t stream) {
+template <typename T, int C_PER, int K>
+int launch(const T* x, const T* offset, const T* mask, const T* wt,
+           const T* dout, float* dx, T* doffset, T* dmask, float* partial,
+           int nb, int n, int h, int w, int cin, int cout, int oh, int ow,
+           int kw, int stride, int pad, int dil, int dg,
+           cudaStream_t stream) {
   constexpr int KC = K * C_PER;
   constexpr int KCP = 16 * ((KC + 15) / 16);
   const int P = oh * ow;
   const int tiles = (P + TP - 1) / TP;
 
   const size_t smem_a = (size_t)(KCP * TO + TO * TP + KC * TP) * sizeof(float);
-  int e = allow_smem(dcn_bwd_data_kernel<C_PER, K>, smem_a);
+  int e = allow_smem(dcn_bwd_data_kernel<T, C_PER, K>, smem_a);
   if (e) return e;
-  dcn_bwd_data_kernel<C_PER, K><<<dim3(n * tiles, dg), THREADS, smem_a,
-                                  stream>>>(
+  dcn_bwd_data_kernel<T, C_PER, K><<<dim3(n * tiles, dg), THREADS, smem_a,
+                                     stream>>>(
       x, offset, mask, wt, dout, dx, doffset, dmask, h, w, cin, cout, oh, ow,
       kw, stride, pad, dil, dg);
   e = (int)cudaGetLastError();
   if (e) return e;
 
   const size_t smem_b = (size_t)(KCP * TP + TP * TOS) * sizeof(float);
-  e = allow_smem(dcn_bwd_weight_kernel<C_PER, K>, smem_b);
+  e = allow_smem(dcn_bwd_weight_kernel<T, C_PER, K>, smem_b);
   if (e) return e;
-  dcn_bwd_weight_kernel<C_PER, K><<<dim3(nb, dg, (cout + TO - 1) / TO),
-                                    THREADS, smem_b, stream>>>(
+  dcn_bwd_weight_kernel<T, C_PER, K><<<dim3(nb, dg, (cout + TO - 1) / TO),
+                                       THREADS, smem_b, stream>>>(
       x, offset, mask, dout, partial, n, h, w, cin, cout, oh, ow, kw, stride,
       pad, dil, dg);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point, bound with ctypes. Pointers are device pointers;
-// `stream` is the caller's cudaStream_t. The caller checks shapes, dtypes,
-// devices and contiguity, zeroes `dx` (channels-last, accumulated with
-// atomics) and allocates `doffset`, `dmask` and the (nb, dg, K*C_PER, cout)
-// `partial` workspace, whose sum over its first axis is dW in the
-// forward's (dg, K, C_PER, cout) weight layout. Returns the cudaError_t of
-// the launches (0 on success); an unsupported cin/dg split or tap count
-// returns cudaErrorInvalidValue without launching.
-extern "C" int dcn_bwd_f32(const void* x, const void* offset,
-                           const void* mask, const void* wt,
-                           const void* dout, void* dx, void* doffset,
-                           void* dmask, void* partial, int nb, int n, int h,
-                           int w, int cin, int cout, int oh, int ow, int kh,
-                           int kw, int stride, int pad, int dil, int dg,
-                           void* stream) {
+template <typename T>
+int dispatch(const void* x, const void* offset, const void* mask,
+             const void* wt, const void* dout, void* dx, void* doffset,
+             void* dmask, void* partial, int nb, int n, int h, int w, int cin,
+             int cout, int oh, int ow, int kh, int kw, int stride, int pad,
+             int dil, int dg, void* stream) {
   if (n == 0 || oh * ow == 0 || cout == 0 || nb < 1) return 0;
-  const auto* xf = static_cast<const float*>(x);
-  const auto* of = static_cast<const float*>(offset);
-  const auto* mf = static_cast<const float*>(mask);
-  const auto* wf = static_cast<const float*>(wt);
-  const auto* df = static_cast<const float*>(dout);
+  const auto* xt = static_cast<const T*>(x);
+  const auto* ot = static_cast<const T*>(offset);
+  const auto* mt = static_cast<const T*>(mask);
+  const auto* wt_ = static_cast<const T*>(wt);
+  const auto* dt = static_cast<const T*>(dout);
   auto* dxf = static_cast<float*>(dx);
-  auto* dof = static_cast<float*>(doffset);
-  auto* dmf = static_cast<float*>(dmask);
+  auto* dot = static_cast<T*>(doffset);
+  auto* dmt = static_cast<T*>(dmask);
   auto* pf = static_cast<float*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
-#define DCN_CASE(C, KK)                                                       \
-  if (cin / dg == C && kh * kw == KK)                                         \
-    return launch<C, KK>(xf, of, mf, wf, df, dxf, dof, dmf, pf, nb, n, h, w,  \
-                         cin, cout, oh, ow, kw, stride, pad, dil, dg, st);
+#define DCN_CASE(C, KK)                                                      \
+  if (cin / dg == C && kh * kw == KK)                                        \
+    return launch<T, C, KK>(xt, ot, mt, wt_, dt, dxf, dot, dmt, pf, nb, n,   \
+                            h, w, cin, cout, oh, ow, kw, stride, pad, dil,   \
+                            dg, st);
   DCN_CASE(1, 9)
   DCN_CASE(2, 9)
   DCN_CASE(4, 9)
@@ -462,4 +398,33 @@ extern "C" int dcn_bwd_f32(const void* x, const void* offset,
   DCN_CASE(32, 1)
 #undef DCN_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes. Pointers are device pointers;
+// x, offset, mask, wt, dout, doffset and dmask hold the entry's element
+// type (float for dcn_bwd_f32, bf16 for dcn_bwd_bf16), dx and partial are
+// float32 in both. `stream` is the caller's cudaStream_t. The caller checks
+// shapes, dtypes, devices and contiguity, zeroes `dx` (channels-last,
+// accumulated with atomics) and allocates `doffset`, `dmask` and the (nb,
+// dg, K*C_PER, cout) `partial` workspace, whose sum over its first axis is
+// dW in the forward's (dg, K, C_PER, cout) weight layout. Returns the
+// cudaError_t of the launches (0 on success); an unsupported cin/dg split
+// or tap count returns cudaErrorInvalidValue without launching.
+#define DCN_BWD_ARGS                                                         \
+  const void *x, const void *offset, const void *mask, const void *wt,       \
+      const void *dout, void *dx, void *doffset, void *dmask, void *partial, \
+      int nb, int n, int h, int w, int cin, int cout, int oh, int ow, int kh, \
+      int kw, int stride, int pad, int dil, int dg, void *stream
+#define DCN_BWD_PASS                                                         \
+  x, offset, mask, wt, dout, dx, doffset, dmask, partial, nb, n, h, w, cin,  \
+      cout, oh, ow, kh, kw, stride, pad, dil, dg, stream
+
+extern "C" int dcn_bwd_f32(DCN_BWD_ARGS) {
+  return dispatch<float>(DCN_BWD_PASS);
+}
+
+extern "C" int dcn_bwd_bf16(DCN_BWD_ARGS) {
+  return dispatch<__nv_bfloat16>(DCN_BWD_PASS);
 }

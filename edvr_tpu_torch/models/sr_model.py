@@ -8,6 +8,15 @@ Parity with the JAX step: optax's ``add_decayed_weights`` then
 ``weight_decay`` (L2 added to the gradient); a per-parameter lr multiplier
 is a param group's ``lr_mul``; a frozen parameter's gradient is multiplied
 by 0, not dropped, so Adam's step count stays shared by every parameter.
+
+``train.mixed_precision: bf16`` is the JAX step's policy
+(``edvr_tpu/models/sr_model.py:148-170``), not ``torch.autocast``: one
+``torch.func.functional_call`` of ``net_g`` with bf16 copies of every
+parameter (``p.to(torch.bfloat16)``, so the gradients flow back through
+the cast into the f32 parameters) on a bf16 input; the output cast to f32
+and the loss taken in f32; f32 master parameters, ``.grad`` and Adam
+state, with no loss scaling (bf16 keeps f32's exponent range). Validation
+runs ``net_g`` itself, in f32.
 """
 
 from __future__ import annotations
@@ -22,18 +31,22 @@ from edvr_tpu_torch.models.losses import build_loss
 from edvr_tpu_torch.utils import get_root_logger
 from edvr_tpu_torch.utils.registry import MODEL_REGISTRY
 
+# train.mixed_precision values and the dtype each computes the network in
+MIXED_PRECISION = {None: None, 'bf16': torch.bfloat16}
+
 
 @MODEL_REGISTRY.register()
 class SRModel(BaseModel):
 
     def __init__(self, opt):
         super().__init__(opt)
-        if self.is_train:
-            mp = opt['train'].get('mixed_precision')
-            if mp is not None:
-                raise NotImplementedError(
-                    f'train.mixed_precision {mp!r} is not ported yet '
-                    '(ROADMAP A.15); set it to null to train in fp32')
+        # checked for any config that carries a train block, as the JAX
+        # engine does (edvr_tpu/models/sr_model.py:34-40)
+        mp = (opt.get('train') or {}).get('mixed_precision')
+        if mp not in MIXED_PRECISION:
+            raise NotImplementedError(
+                f'mixed_precision {mp!r} is not supported (bf16 only).')
+        self.compute_dtype = MIXED_PRECISION[mp]
         # parameters are drawn from the option file's seed, on the CPU,
         # without touching the caller's global generator
         with torch.random.fork_rng(devices=[]):
@@ -89,9 +102,23 @@ class SRModel(BaseModel):
         if 'gt' in data:
             self.gt = data['gt'].to(self.device, torch.float32)
 
+    def train_forward(self, lq):
+        """``net_g`` on ``lq`` under the mixed-precision policy: in fp32, or
+        in ``compute_dtype`` through bf16 copies of the parameters, the
+        output cast back to f32."""
+        if self.compute_dtype is None:
+            return self.net_g(lq)
+        dt = self.compute_dtype
+        params = {n: p.to(dt) for n, p in self.net_g.named_parameters()}
+        buffers = {n: b.to(dt) if b.is_floating_point() else b
+                   for n, b in self.net_g.named_buffers()}
+        out = torch.func.functional_call(self.net_g, (params, buffers),
+                                         (lq.to(dt),))
+        return out.float()
+
     def optimize_parameters(self, current_iter):
         self.optimizer_g.zero_grad()
-        self.output = self.net_g(self.lq)
+        self.output = self.train_forward(self.lq)
         l_pix = self.cri_pix(self.output, self.gt)
         l_pix.backward()
         self.log_dict = {'l_pix': l_pix.detach()}

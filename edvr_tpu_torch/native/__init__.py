@@ -1,10 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
-header. It is compiled with ``nvcc`` for ``sm_90a`` into
-``_build/lib<name>.so`` at first use and loaded with ``ctypes``; a build
-takes seconds. Nothing here runs at import: the CPU tests import every
-module of the port on machines without ``nvcc``.
+Each ``csrc/<source>.cu`` has a plain C interface and includes no PyTorch
+header (only ``csrc/*.cuh`` beside it). It is compiled with ``nvcc`` for
+``sm_90a`` into ``_build/lib<source>-<hash>.so`` at first use and its
+entry points are loaded with ``ctypes``; a build takes seconds. Nothing
+here runs at import: the CPU tests import every module of the port on
+machines without ``nvcc``.
 
 A build that fails raises with nvcc's output. There is no fallback: a CUDA
 tensor either reaches its kernel or the call raises.
@@ -27,20 +28,41 @@ BUILD_DIR = osp.join(_PKG, '_build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-# the argument types of each kernel's C entry point; every pointer and the
+# each kernel entry's C symbol and argument types; every pointer and the
 # stream are c_void_p, or ctypes would pass them as 32-bit ints
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD = [_P] * 6 + [_I] * 13 + [_P]
+_FWD_ABLATE = [_P] * 6 + [_I] * 14 + [_P]  # ... dg, mode, stream
+_BWD = [_P] * 9 + [_I] * 14 + [_P]
 SIGNATURES = {
-    'dcn_fwd': ('dcn_fwd_f32', [_P] * 6 + [_I] * 13 + [_P]),
-    'dcn_bwd': ('dcn_bwd_f32', [_P] * 9 + [_I] * 14 + [_P]),
+    'dcn_fwd': ('dcn_fwd_f32', _FWD),
+    'dcn_fwd_bf16': ('dcn_fwd_bf16', _FWD),
+    'dcn_fwd_ablate_f32': ('dcn_fwd_ablate_f32', _FWD_ABLATE),
+    'dcn_fwd_ablate_bf16': ('dcn_fwd_ablate_bf16', _FWD_ABLATE),
+    'dcn_bwd': ('dcn_bwd_f32', _BWD),
+    'dcn_bwd_bf16': ('dcn_bwd_bf16', _BWD),
     'row_gather': ('row_gather_f32', [_P] * 4 + [_I] * 3 + [_P]),
     'blend_matmul': ('blend_matmul_f32', [_P] * 5 + [_I] * 4 + [_P]),
 }
+# the source in csrc/ that defines each entry
+SOURCE = {'dcn_fwd': 'dcn_fwd', 'dcn_fwd_bf16': 'dcn_fwd',
+          'dcn_fwd_ablate_f32': 'dcn_fwd', 'dcn_fwd_ablate_bf16': 'dcn_fwd',
+          'dcn_bwd': 'dcn_bwd', 'dcn_bwd_bf16': 'dcn_bwd',
+          'row_gather': 'row_gather', 'blend_matmul': 'blend_matmul'}
+SOURCES = sorted(set(SOURCE.values()))
 
-# launches of each kernel, counted by its wrapper where the kernel is
-# launched and nowhere else; a caller resets them to check that a path
-# went through a kernel
-LAUNCHES = {name: 0 for name in SIGNATURES}
+# the variants of the dcn_fwd_ablate_* entries, in the order of
+# csrc/dcn_fwd.cu's enum Mode (ops/dcn_ablate.py)
+ABLATE_MODES = ('full', 'no_coef', 'int_coef', 'no_gather', 'coords_only',
+                'io_only')
+# launches of each kernel entry, counted by its wrapper where the kernel
+# is launched and nowhere else (an ablation entry once per variant, as
+# dcn_fwd_ablate_<mode>_<f32|bf16>); a caller resets them to check that a
+# path went through a kernel
+LAUNCHES = {name: 0 for name in SIGNATURES
+            if not name.startswith('dcn_fwd_ablate_')}
+LAUNCHES.update({f'dcn_fwd_ablate_{mode}_{dt}': 0 for dt in ('f32', 'bf16')
+                 for mode in ABLATE_MODES})
 
 _libs: dict = {}
 _ptxas_logs: dict = {}
@@ -60,9 +82,14 @@ def nvcc_path() -> str:
 
 
 def _so_path(name: str) -> str:
-    with open(osp.join(CSRC, f'{name}.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return osp.join(BUILD_DIR, f'lib{name}-{digest}.so')
+    """The library of source ``name``, keyed by its text and the shared
+    headers' (``csrc/*.cuh``)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith('.cuh'))
+    for fname in [f'{name}.cu', *headers]:
+        with open(osp.join(CSRC, fname), 'rb') as f:
+            h.update(f.read())
+    return osp.join(BUILD_DIR, f'lib{name}-{h.hexdigest()[:12]}.so')
 
 
 def _start_build(name: str):
@@ -92,10 +119,10 @@ def _finish_build(name: str, so: str, tmp, proc) -> None:
 
 
 def build_all(names=None) -> dict:
-    """Build the named kernels (all by default), one nvcc per source, all
-    started together. Returns {name: nvcc's -Xptxas -v output} for the
-    sources built by this call."""
-    names = list(SIGNATURES if names is None else names)
+    """Build the named sources (all of ``SOURCES`` by default), one nvcc
+    per source, all started together. Returns {source: nvcc's -Xptxas -v
+    output} for the sources built by this call."""
+    names = list(SOURCES if names is None else names)
     with _lock:
         started = [(n, *_start_build(n)) for n in names]
         for name, so, tmp, proc in started:
@@ -104,13 +131,14 @@ def build_all(names=None) -> dict:
 
 
 def load(name: str):
-    """The bound C entry point of kernel ``name``, building it if needed."""
+    """The bound C entry point of kernel entry ``name``, building its
+    source if needed."""
     fn = _libs.get(name)
     if fn is not None:
         return fn
-    build_all([name])
     symbol, argtypes = SIGNATURES[name]
-    fn = getattr(ctypes.CDLL(_so_path(name)), symbol)
+    build_all([SOURCE[name]])
+    fn = getattr(ctypes.CDLL(_so_path(SOURCE[name])), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     _libs[name] = fn

@@ -8,13 +8,19 @@ Semantics of the reference CUDA extension, as in
   kernel tap ``k = i * kw + j``;
 * mask layout: channel ``g * K + k``, already sigmoided by the caller;
 * sampling: bilinear with a per-tap zero boundary: corners outside the
-  image contribute 0, so a tap wholly outside samples 0.
+  image contribute 0, so a tap wholly outside samples 0;
+* sample coordinates, fractions and validity in float32 (or wider) for
+  every input dtype, as ``edvr_tpu/ops/dcn.py:467-481``; in bfloat16 the
+  TPU kernel's rounding points (``edvr_tpu/ops/dcn_band.py:501-536``):
+  each corner's coefficient, mask included, and each corner's product with
+  the table value rounded to bfloat16, the contraction accumulated in
+  float32 and the output cast to bfloat16 before the bias.
 
 ``modulated_deform_conv`` dispatches on the device of ``x``: a CPU tensor
 takes the plain PyTorch version under autograd, a CUDA tensor the
 hand-written kernels through an autograd Function (forward
-``edvr_tpu_torch/csrc/dcn_fwd.cu``, backward ``csrc/dcn_bwd.cu``), which
-raise rather than fall back.
+``edvr_tpu_torch/csrc/dcn_fwd.cu``, backward ``csrc/dcn_bwd.cu``; float32
+and bfloat16 entries), which raise rather than fall back or cast.
 
 With ``EDVR_TPU_DCN_PALLAS=1``, the JAX package's switch, and a tile of at
 least two pixels (``128 // (2 * c_per) >= 2``), it takes the packed route
@@ -23,6 +29,7 @@ instead (:func:`_mdcn_packed`, the gather branch of
 (``ops/gather.py``, ``csrc/row_gather.cu``) and one blend GEMM
 (``ops/dcn_blend.py``, ``csrc/blend_matmul.cu``) per deformable group, on
 either device; on a CUDA tensor it never launches ``dcn_fwd``/``dcn_bwd``.
+It is float32 only and raises on bfloat16 (ROADMAP B.3).
 """
 
 from __future__ import annotations
@@ -70,17 +77,21 @@ def modulated_deform_conv_plain(x, offset, mask, weight, bias=None,
     ow = _out_size(w, kw, stride, padding, dilation)
     P = oh * ow
     dt = x.dtype
+    # bf16: band_forward's rounding points; coordinates in float32 at least
+    low = dt == torch.bfloat16
+    ct = torch.promote_types(offset.dtype, torch.float32)
+    acc = torch.promote_types(dt, torch.float32)
 
-    base_y = (torch.arange(oh, device=x.device, dtype=dt) * stride
+    base_y = (torch.arange(oh, device=x.device, dtype=ct) * stride
               - padding).view(1, 1, oh, 1)
-    base_x = (torch.arange(ow, device=x.device, dtype=dt) * stride
+    base_x = (torch.arange(ow, device=x.device, dtype=ct) * stride
               - padding).view(1, 1, 1, ow)
-    off = offset.view(n, dg, K, 2, oh, ow)
+    off = offset.view(n, dg, K, 2, oh, ow).to(ct)
     msk = mask.view(n, dg, K, P)
     xg = x.reshape(n, dg, c_per, h * w)
     wk = weight.view(groups, cout // groups, cin_g, K)
 
-    out = x.new_zeros(n, groups, cout // groups, P)
+    out = x.new_zeros(n, groups, cout // groups, P, dtype=acc)
     for k in range(K):
         i, j = divmod(k, kw)
         cy = (base_y + i * dilation) + off[:, :, k, 0]  # (n, dg, oh, ow)
@@ -89,23 +100,39 @@ def modulated_deform_conv_plain(x, offset, mask, weight, bias=None,
         x0 = torch.floor(cx)
         fy = cy - y0
         fx = cx - x0
-        sampled = x.new_zeros(n, dg, c_per, P)
-        for yi, xi, wgt in ((y0, x0, (1 - fy) * (1 - fx)),
-                            (y0, x0 + 1, (1 - fy) * fx),
-                            (y0 + 1, x0, fy * (1 - fx)),
-                            (y0 + 1, x0 + 1, fy * fx)):
+        mk = msk[:, :, k].view(n, dg, oh, ow).to(ct) if low else None
+        sampled = x.new_zeros(n, dg, c_per, P, dtype=acc)
+        if low:  # the row and column factors apart
+            corners = ((y0, x0, (1 - fy, 1 - fx)), (y0, x0 + 1, (1 - fy, fx)),
+                       (y0 + 1, x0, (fy, 1 - fx)), (y0 + 1, x0 + 1, (fy, fx)))
+        else:
+            corners = ((y0, x0, (1 - fy) * (1 - fx)),
+                       (y0, x0 + 1, (1 - fy) * fx),
+                       (y0 + 1, x0, fy * (1 - fx)),
+                       (y0 + 1, x0 + 1, fy * fx))
+        for yi, xi, wgt in corners:
             # validity is decided on the float corner, before the clamp and
             # the integer conversion, so any offset magnitude stays exact
-            valid = (yi >= 0) & (yi <= h - 1) & (xi >= 0) & (xi <= w - 1)
+            vy = (yi >= 0) & (yi <= h - 1)
+            vx = (xi >= 0) & (xi <= w - 1)
             idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
             idx = idx.view(n, dg, 1, P).expand(n, dg, c_per, P)
             vals = torch.gather(xg, 3, idx)
-            sampled = sampled + vals * (wgt * valid.to(dt)).view(
-                n, dg, 1, P)
-        sampled = sampled * msk[:, :, k].view(n, dg, 1, P)
+            if low:
+                # the coefficient (ay * bx, the mask inside ay) and the
+                # per-corner product rounded to bf16, summed in float32
+                wy, wx = wgt
+                coef = ((wy * vy.to(ct) * mk) * (wx * vx.to(ct))).to(dt)
+                sampled = sampled + vals * coef.view(n, dg, 1, P)
+            else:
+                sampled = sampled + vals * (wgt * (vy & vx).to(dt)).view(
+                    n, dg, 1, P)
+        if not low:
+            sampled = sampled * msk[:, :, k].view(n, dg, 1, P)
         col = sampled.reshape(n, groups, cin_g, P)
-        out = out + torch.einsum('ngcp,goc->ngop', col, wk[..., k])
-    out = out.reshape(n, cout, oh, ow)
+        out = out + torch.einsum('ngcp,goc->ngop', col,
+                                 wk[..., k].to(acc))
+    out = out.reshape(n, cout, oh, ow).to(dt)
     if bias is not None:
         out = out + bias.view(1, -1, 1, 1)
     return out
@@ -126,6 +153,10 @@ def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
     all K taps as ``g_cat`` (NP, K*lanes) and one blend GEMM contracts them
     with the tap weights tiled over the slots.
     """
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            'the packed DCN route (EDVR_TPU_DCN_PALLAS=1) is float32 only; '
+            'its bf16 blend is not ported yet (ROADMAP B.3)')
     n, cin, h, w = x.shape
     cout, cin_g, kh, kw = weight.shape
     K = kh * kw
@@ -225,14 +256,19 @@ def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
 
 def _check_cuda_args(op, tensors, x, offset, mask, weight, bias, stride,
                      padding, dilation, deformable_groups):
-    """Shape, device and dtype checks shared by the kernels' wrappers;
-    returns (n, cin, h, w, cout, kh, kw, oh, ow)."""
+    """Shape, device and dtype checks shared by the kernels' wrappers:
+    every tensor on x's CUDA device, all float32 or all bfloat16 (the
+    kernels' two element types; nothing is cast). Returns (n, cin, h, w,
+    cout, kh, kw, oh, ow)."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f'{op}: x must be float32 or bfloat16, got {x.dtype}')
     for name, t in tensors.items():
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f'{op}: {name} must lie on {x.device} '
                              f'(a CUDA device), got {t.device}')
-        if t.dtype != torch.float32:
-            raise TypeError(f'{op}: {name} must be float32, got {t.dtype}')
+        if t.dtype != x.dtype:
+            raise TypeError(f'{op}: {name} is {t.dtype} but x is {x.dtype}; '
+                            'the kernels take one dtype for all inputs')
     n, cin, h, w = x.shape
     cout, cin_w, kh, kw = weight.shape
     dg = deformable_groups
@@ -259,6 +295,11 @@ def _check_cuda_args(op, tensors, x, offset, mask, weight, bias, stride,
     return n, cin, h, w, cout, kh, kw, oh, ow
 
 
+# the kernels' element types, and the suffix of each one's entry name in
+# native.SIGNATURES and LAUNCHES ('dcn_fwd' is the float32 forward)
+KERNEL_DTYPES = {torch.float32: '', torch.bfloat16: '_bf16'}
+
+
 def _kernel_weight(weight, dg):
     """(cout, cin, kh, kw) -> the kernels' (dg, K, c_per, cout) slices."""
     cout, cin, kh, kw = weight.shape
@@ -268,11 +309,14 @@ def _kernel_weight(weight, dg):
 
 def dcn_fwd_cuda(x, offset, mask, weight, bias=None, stride=1, padding=0,
                  dilation=1, deformable_groups=1):
-    """DCNv2 forward through the CUDA kernel (fp32, groups=1, no autograd;
-    :class:`ModulatedDeformConvFunction` gives it one).
+    """DCNv2 forward through the CUDA kernel (float32 or bfloat16,
+    groups=1, no autograd; :class:`ModulatedDeformConvFunction` gives it
+    one).
 
-    Same arguments and result as :func:`modulated_deform_conv_plain`.
-    Raises on any input the kernel does not take.
+    Same arguments and result as :func:`modulated_deform_conv_plain`, in
+    the inputs' dtype: ``dcn_fwd_f32`` or ``dcn_fwd_bf16``, counted in
+    ``LAUNCHES['dcn_fwd']`` or ``LAUNCHES['dcn_fwd_bf16']``. Raises on any
+    input the kernel does not take.
     """
     tensors = {'x': x, 'offset': offset, 'mask': mask, 'weight': weight}
     if bias is not None:
@@ -281,7 +325,8 @@ def dcn_fwd_cuda(x, offset, mask, weight, bias=None, stride=1, padding=0,
         'dcn_fwd', tensors, x, offset, mask, weight, bias, stride, padding,
         dilation, deformable_groups)
 
-    fn = native.load('dcn_fwd')
+    entry = 'dcn_fwd' + KERNEL_DTYPES[x.dtype]
+    fn = native.load(entry)
     # the kernel reads x channels-last (one contiguous read per corner) and
     # the weights as (dg, K, c_per, cout) slices
     x_cl = x.detach().permute(0, 2, 3, 1).contiguous()
@@ -295,19 +340,23 @@ def dcn_fwd_cuda(x, offset, mask, weight, bias=None, stride=1, padding=0,
                  bias_c.data_ptr() if bias_c is not None else None,
                  out.data_ptr(), n, h, w, cin, cout, oh, ow, kh, kw, stride,
                  padding, dilation, deformable_groups, stream)
-    native.check('dcn_fwd', err)
-    LAUNCHES['dcn_fwd'] += 1
+    native.check(entry, err)
+    LAUNCHES[entry] += 1
     return out
 
 
 def dcn_bwd_cuda(dout, x, offset, mask, weight, stride=1, padding=0,
                  dilation=1, deformable_groups=1):
-    """DCNv2 backward through the CUDA kernel (fp32, groups=1).
+    """DCNv2 backward through the CUDA kernel (float32 or bfloat16,
+    groups=1).
 
     Given the output cotangent ``dout`` of :func:`dcn_fwd_cuda` at these
     inputs, returns ``(dx, d_offset, d_mask, d_weight)``, the gradients
     that autograd through :func:`modulated_deform_conv_plain` gives (the
-    bias gradient is ``dout.sum((0, 2, 3))``). ``dx`` is accumulated with
+    bias gradient is ``dout.sum((0, 2, 3))``), each in its input's dtype.
+    In bfloat16 the kernel sums in float32: ``dx`` into a float32 buffer
+    (``dcn_bwd_bf16``; bf16 atomics would lose the sum) and ``d_weight``
+    from float32 partials, both cast here. ``dx`` is accumulated with
     atomics, so its low bits vary from run to run. Taps of 1x1 or 3x3
     only; raises on any input the kernel does not take.
     """
@@ -323,13 +372,14 @@ def dcn_bwd_cuda(dout, x, offset, mask, weight, stride=1, padding=0,
         raise ValueError(f'dcn_bwd: dout shape {tuple(dout.shape)} != '
                          f'{(n, cout, oh, ow)}')
 
-    fn = native.load('dcn_bwd')
+    entry = 'dcn_bwd' + KERNEL_DTYPES[x.dtype]
+    fn = native.load(entry)
     dg = deformable_groups
     c_per = cin // dg
     x_cl = x.detach().permute(0, 2, 3, 1).contiguous()
     wt = _kernel_weight(weight.detach(), dg)
     dout = dout.contiguous()
-    dx_cl = torch.zeros_like(x_cl)
+    dx_cl = torch.zeros(x_cl.shape, device=x.device, dtype=torch.float32)
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
     # blocks of the weight-gradient launch: about eight per SM, each
@@ -346,14 +396,15 @@ def dcn_bwd_cuda(dout, x, offset, mask, weight, stride=1, padding=0,
                  d_offset.data_ptr(), d_mask.data_ptr(), partial.data_ptr(),
                  nb, n, h, w, cin, cout, oh, ow, kh, kw, stride, padding,
                  dilation, dg, stream)
-    native.check('dcn_bwd', err)
-    LAUNCHES['dcn_bwd'] += 1
+    native.check(entry, err)
+    LAUNCHES[entry] += 1
     # the second pass over the per-block partials, then (dg, K, c_per,
     # cout) back to (cout, cin, kh, kw)
     d_weight = partial.sum(0).view(dg, kh * kw, c_per, cout).permute(
-        3, 0, 2, 1).reshape(cout, cin, kh, kw)
-    return (dx_cl.permute(0, 3, 1, 2).contiguous(), d_offset, d_mask,
-            d_weight)
+        3, 0, 2, 1).reshape(cout, cin, kh, kw).to(weight.dtype)
+    dx = dx_cl.permute(0, 3, 1, 2).to(x.dtype,
+                                      memory_format=torch.contiguous_format)
+    return dx, d_offset, d_mask, d_weight
 
 
 class ModulatedDeformConvFunction(torch.autograd.Function):

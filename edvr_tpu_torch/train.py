@@ -2,10 +2,12 @@
 ``edvr_tpu/train.py``::
 
     python -m edvr_tpu_torch.train -opt <yml> [--device cpu]
-        [--force_yml train:mixed_precision=~ ...]
+        [--force_yml key:sub=value ...]
 
 One process on one device (``cuda`` unless ``--device`` says otherwise),
-fp32 with TF32 off. The loop is the reference's: epochs over an enlarged
+TF32 off; the training step follows ``train.mixed_precision`` (null:
+fp32; bf16: the JAX engine's policy, ``models/sr_model.py``) and
+validation is fp32. The loop is the reference's: epochs over an enlarged
 sampler, message logging at ``print_freq``, checkpoints at
 ``save_checkpoint_freq``, validation at ``val_freq``, resume from
 ``path.resume_state``. ``parse_options`` is shared with the test CLI and

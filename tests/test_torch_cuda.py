@@ -167,8 +167,14 @@ def _plain_grads(args, kw, dout):
 
 
 def _rel_err(got, want):
+    got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
             ).item()
+
+
+def _launches(**counts):
+    """A launch-count delta: the given kernel entries, every other 0."""
+    return {k: counts.get(k, 0) for k in dcn.LAUNCHES}
 
 
 # fp32 on both sides; sums over up to K*c_per*cout (dcol), n*P (dW) and the
@@ -398,10 +404,8 @@ def test_packed_route_matches_direct_route(cuda, monkeypatch, geo):
         results[route] = (out.detach(), [a.grad for a in leaves],
                           {k: dcn.LAUNCHES[k] - before[k] for k in before})
     dg = geo['dg']
-    assert results['direct'][2] == dict(dcn_fwd=1, dcn_bwd=1, row_gather=0,
-                                        blend_matmul=0)
-    assert results['packed'][2] == dict(dcn_fwd=0, dcn_bwd=0, row_gather=dg,
-                                         blend_matmul=dg)
+    assert results['direct'][2] == _launches(dcn_fwd=1, dcn_bwd=1)
+    assert results['packed'][2] == _launches(row_gather=dg, blend_matmul=dg)
     torch.testing.assert_close(results['packed'][0], results['direct'][0],
                                atol=1e-4, rtol=0)
     for name, g, w in zip(('dx', 'd_offset', 'd_mask', 'd_weight', 'd_bias'),
@@ -433,8 +437,7 @@ def test_packed_edvr_step_cuda_matches_cpu(cuda, monkeypatch):
         grads[dev] = {n: p.grad.detach().clone().cpu()
                       for n, p in net.named_parameters()}
         counts = {k: dcn.LAUNCHES[k] - before[k] for k in before}
-    assert counts == dict(dcn_fwd=0, dcn_bwd=0, row_gather=8,
-                          blend_matmul=8)
+    assert counts == _launches(row_gather=8, blend_matmul=8)
     for name, g in grads['cpu'].items():
         assert _rel_err(grads['cuda'][name], g) <= 1e-3, name
 
@@ -492,3 +495,253 @@ def test_test_cli_on_card_matches_cpu(cuda, tmp_path):
         want = net.eval()(lq).numpy()
     np.testing.assert_allclose(np.load(tmp_path / 'out.npy'), want,
                                atol=3e-4, rtol=0)
+
+
+# bf16 kernel vs the bf16 plain version, relative to each result's
+# largest entry. Forward: the same rounding points (coefficient and
+# per-corner product in bf16), the float32 contraction summed in another
+# order, which moves the bf16 output rounding by at most one ulp (2^-8).
+# Backward: the kernel sums in float32 where autograd through the plain
+# version rounds each op's gradient to bf16 (its dx scatter adds in bf16),
+# the bound tests/test_mixed_precision.py holds the bf16 band path to.
+BF16_FWD_TOL = 1e-2
+BF16_BWD_TOL = 4e-2
+BF16_GEOS = [
+    dict(n=5, cin=64, cout=64, h=45, w=80, dg=8, far=0.05),   # EDVR-M L3
+    dict(n=2, cin=64, cout=64, h=33, w=47, dg=8, far=0.5),    # c_per 8
+    dict(n=1, cin=32, cout=130, h=12, w=300, dg=2, far=0.1),  # c_per 16
+    dict(n=2, cin=16, cout=24, h=20, w=28, dg=4),             # c_per 4
+    dict(n=1, cin=6, cout=70, h=13, w=17, dg=3),              # c_per 2
+    dict(n=1, cin=4, cout=8, h=11, w=9, dg=4, bias=False),    # c_per 1
+    dict(n=2, cin=32, cout=16, h=17, w=21, dg=1, stride=2),   # c_per 32
+    dict(n=2, cin=16, cout=16, h=9, w=10, dg=2, k=1, padding=0),  # 1x1
+]
+
+
+def _bf16_case(seed, **geo):
+    args, kw = _case(seed, **geo)
+    return [a if a is None else a.bfloat16() for a in args], kw
+
+
+@pytest.mark.parametrize('geo', BF16_GEOS)
+def test_bf16_kernel_matches_plain(cuda, geo):
+    args, kw = _bf16_case(10, **geo)
+    before = dict(dcn.LAUNCHES)
+    with torch.no_grad():
+        got = dcn.dcn_fwd_cuda(*args, **kw)
+        want = dcn.modulated_deform_conv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == _launches(
+        dcn_fwd_bf16=1)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert _rel_err(got, want) <= BF16_FWD_TOL, _rel_err(got, want)
+
+
+@pytest.mark.parametrize('geo', BF16_GEOS)
+def test_bf16_bwd_kernel_matches_plain(cuda, geo):
+    args, kw = _bf16_case(11, **geo)
+    with torch.no_grad():
+        out = dcn.modulated_deform_conv_plain(*args, **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        12)).to(cuda, torch.bfloat16)
+    before = dict(dcn.LAUNCHES)
+    got = dcn.dcn_bwd_cuda(dout, *args[:4], **kw)
+    want = _plain_grads(args, kw, dout)
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == _launches(
+        dcn_bwd_bf16=1)
+    for name, g, w in zip(('dx', 'd_offset', 'd_mask', 'd_weight'), got,
+                          want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16, name
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, w) <= BF16_BWD_TOL, (name, _rel_err(g, w))
+
+
+def test_bf16_autograd_function_on_cuda(cuda):
+    """modulated_deform_conv on bf16 CUDA tensors runs the bf16 kernels
+    forward and backward (no fp32 launch, no cast) and every gradient is
+    bf16."""
+    args, kw = _bf16_case(13, n=2, cin=32, cout=32, h=14, w=18, dg=4,
+                          far=0.05)
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = dict(dcn.LAUNCHES)
+    out = dcn.modulated_deform_conv(*leaves, **kw)
+    (out.float() * out.float().cos()).sum().backward()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == _launches(
+        dcn_fwd_bf16=1, dcn_bwd_bf16=1)
+    ref = [a.clone().requires_grad_() for a in args]
+    out_p = dcn.modulated_deform_conv_plain(*ref, **kw)
+    (out_p.float() * out_p.float().cos()).sum().backward()
+    assert out.dtype == torch.bfloat16
+    for a, b in zip(leaves, ref):
+        assert a.grad.dtype == torch.bfloat16
+        assert _rel_err(a.grad, b.grad) <= BF16_BWD_TOL
+
+
+def test_bf16_refusals(cuda, monkeypatch):
+    """Mixed dtypes and other dtypes raise; the packed route raises on
+    bf16 (its bf16 blend is ROADMAP B.3) and launches nothing."""
+    args, kw = _bf16_case(14, n=1, cin=16, cout=16, h=8, w=8, dg=2)
+    x, off, mask, weight, bias = args
+    with pytest.raises(TypeError, match='one dtype'):
+        dcn.dcn_fwd_cuda(x, off, mask, weight.float(), bias, **kw)
+    with pytest.raises(TypeError, match='one dtype'):
+        dcn.dcn_fwd_cuda(x, off.float(), mask, weight, bias, **kw)
+    with pytest.raises(TypeError, match='one dtype'):
+        dcn.dcn_bwd_cuda(torch.zeros(1, 16, 8, 8, device=cuda), x, off,
+                         mask, weight, **kw)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        dcn.dcn_fwd_cuda(x.half(), off.half(), mask.half(), weight.half(),
+                         bias.half(), **kw)
+    with pytest.raises(TypeError):
+        dcn.modulated_deform_conv(x, off, mask, weight.float(), bias, **kw)
+    monkeypatch.setenv('EDVR_TPU_DCN_PALLAS', '1')
+    before = dict(dcn.LAUNCHES)
+    with pytest.raises(NotImplementedError, match='B.3'):
+        dcn.modulated_deform_conv(x, off, mask, weight, bias, **kw)
+    assert dcn.LAUNCHES == before
+
+
+ABLATE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('mode', ['full', 'no_coef', 'int_coef', 'no_gather',
+                                  'coords_only', 'io_only'])
+def test_ablate_kernel_matches_plain(cuda, mode, dtype):
+    """Each ablation variant of dcn_fwd.cu against its plain version, at a
+    ragged shape with far offsets (float32: the same products in another
+    order, 1e-5 of max|out|; bf16: one output ulp, 1e-2)."""
+    from edvr_tpu_torch.ops import dcn_ablate
+    args, kw = _case(15, n=2, cin=64, cout=40, h=21, w=37, dg=8, far=0.05)
+    args = [a.to(dtype) for a in args]
+    key = (f'dcn_fwd_ablate_{mode}_'
+           f"{'f32' if dtype == torch.float32 else 'bf16'}")
+    before = dcn.LAUNCHES[key]
+    with torch.no_grad():
+        got = dcn_ablate.ablate_cuda(mode, *args, **kw)
+        want = dcn_ablate.ablate_plain(mode, *args, **kw)
+    torch.cuda.synchronize()
+    assert dcn.LAUNCHES[key] == before + 1
+    assert got.dtype == want.dtype == dtype
+    assert _rel_err(got, want) <= ABLATE_TOL[dtype], _rel_err(got, want)
+
+
+# the first bf16 step's gradient against the float32 gradient of the same
+# loss: |g - g32| / |g32| in L2 norms over all parameters (MP_GRAD_TOL),
+# and the cosine of g and g32 for each parameter tensor (MP_LEAF_COS_MIN);
+# tests/test_torch_bf16.py holds the port's CPU path to them too. Sound
+# readings (check_mp_grads prints them): tests/test_torch_bf16.py's small
+# seeded EDVR 4.1e-3 and 4.9e-3, cosines >= 0.99; the random-init EDVR of
+# mp_runs 2.4e-2, least cosine 0.87 (a bias holding 4e-5 of the gradient;
+# most of it is conv_last.bias, the mean residual, which the bf16 output
+# resolves to 2^-9). Wrong gradients read: 1.5 x the gradient 0.5; negated
+# 2 and cosine -1; a tensor's dropped cosine 0; the JAX engine's bf16
+# gradient on the CPU, where XLA sums the bias gradients in bf16, 0.11-0.13
+MP_GRAD_TOL = 5e-2
+MP_LEAF_COS_MIN = 0.5
+
+
+def grad_gaps(got, want):
+    """|got - want| / |want| (L2 norms) over every parameter tensor
+    together, and the cosine of got and want for each one (0 where got is
+    0)."""
+    num = den = 0.0
+    cosines = {}
+    for n, w in want.items():
+        g, w = got[n].double().ravel(), w.double().ravel()
+        assert w.norm() > 0, n
+        num += (g - w).square().sum().item()
+        den += w.square().sum().item()
+        cosines[n] = (g @ w / (g.norm() * w.norm()).clamp_min(1e-300)
+                      ).item()
+    return (num / den) ** 0.5, cosines
+
+
+def check_mp_grads(got, want):
+    """The bf16 step's gradient ``got`` against the float32 ``want``, and
+    that the bounds see a scaled, negated or dropped gradient."""
+    total, cosines = grad_gaps(got, want)
+    worst = min(cosines, key=cosines.get)
+    print(f'mp gradient gap {total}, least cosine {worst} {cosines[worst]}')
+    assert total <= MP_GRAD_TOL, total
+    assert cosines[worst] >= MP_LEAF_COS_MIN, (worst, cosines[worst])
+    assert grad_gaps({n: 1.5 * g for n, g in got.items()},
+                     want)[0] > MP_GRAD_TOL
+    assert grad_gaps({n: -g for n, g in got.items()}, want)[0] > MP_GRAD_TOL
+    dropped = dict(got, **{worst: torch.zeros_like(got[worst])})
+    assert grad_gaps(dropped, want)[1][worst] < MP_LEAF_COS_MIN
+
+
+def mp_runs(device, tmp_path):
+    """Two steps of a small random-init EDVR (its conv_offset weights drawn,
+    so the samples move) on one batch, in float32 and under
+    ``mixed_precision: bf16``, from the same parameters, on ``device``.
+    Returns {None | 'bf16': (model, losses, the last step's launches, the
+    first step's gradients)}."""
+    from edvr_tpu_torch.models import create_model
+    from edvr_tpu_torch.utils.options import parse_dict
+    net = dict(type='EDVR', num_in_ch=3, num_out_ch=3, num_feat=16,
+               num_frame=5, deformable_groups=2, num_extract_block=1,
+               num_reconstruct_block=1, center_frame_idx=None, hr_in=False,
+               with_predeblur=False, with_tsa=True)
+    gen = torch.Generator().manual_seed(16)
+    batch = {'lq': torch.rand(2, 5, 3, 16, 16, generator=gen),
+             'gt': torch.rand(2, 3, 64, 64, generator=gen)}
+    runs = {}
+    for mp in (None, 'bf16'):
+        opt = parse_dict(dict(
+            name=f'mp_{mp}', model_type='EDVRModel', scale=4, num_gpu=1,
+            manual_seed=0, network_g=net,
+            path=dict(pretrain_network_g=None, strict_load_g=True),
+            train=dict(optim_g=dict(type='Adam', lr=4e-4, betas=[0.9, 0.99]),
+                       scheduler=dict(type='CosineAnnealingRestartLR',
+                                      periods=[4], restart_weights=[1],
+                                      eta_min=1e-7),
+                       total_iter=4, warmup_iter=-1, mixed_precision=mp,
+                       pixel_opt=dict(type='CharbonnierLoss',
+                                      loss_weight=1.0, reduction='mean'))),
+            is_train=True, root=str(tmp_path))
+        opt['device'] = device
+        model = create_model(opt)
+        with torch.no_grad():  # moving samples: non-zero offsets
+            for n, p in model.net_g.named_parameters():
+                if 'conv_offset.weight' in n:
+                    p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                        .manual_seed(17)) * 0.05)
+        losses = []
+        for it in (1, 2):
+            before = dict(dcn.LAUNCHES)
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            counts = {k: dcn.LAUNCHES[k] - before[k] for k in before}
+            losses.append(model.get_current_log()['l_pix'])
+            if it == 1:
+                grads = {n: p.grad.clone()
+                         for n, p in model.net_g.named_parameters()}
+        runs[mp] = (model, losses, counts, grads)
+    return runs
+
+
+def test_mp_train_steps_on_card(cuda, tmp_path):
+    """Two mixed-precision EDVR steps on the card: 4 bf16 forward and 4 bf16
+    backward DCN launches a step and no fp32 one, f32 master parameters,
+    the first step's gradients within MP_GRAD_TOL (all parameters) and
+    MP_LEAF_COS_MIN (each tensor) of the card's fp32 step's, and the loss
+    and parameters within the bounds of tests/test_mixed_precision.py
+    (loss per element 5e-3, parameters 4 x lr), which an Adam step's
+    normalization keeps from seeing the gradient."""
+    runs = mp_runs('cuda', tmp_path)
+    model, losses, counts, grads = runs['bf16']
+    assert counts == _launches(dcn_fwd_bf16=4, dcn_bwd_bf16=4)
+    assert runs[None][2] == _launches(dcn_fwd=4, dcn_bwd=4)
+    check_mp_grads(grads, runs[None][3])
+    for a, b in zip(losses, runs[None][1]):
+        assert np.isfinite(a) and abs(a - b) <= 5e-3
+    want = dict(runs[None][0].net_g.named_parameters())
+    for n, p in model.net_g.named_parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
+        assert model.optimizer_g.state[p]['exp_avg'].dtype == torch.float32
+        assert (p - want[n]).abs().max().item() <= 4 * 4e-4, n

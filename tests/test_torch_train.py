@@ -149,8 +149,10 @@ def test_engine_refusals(tmp_path):
         opt['device'] = 'cpu'
         return opt
 
-    with pytest.raises(NotImplementedError, match='A.15'):
-        create_model(opt_with(mixed_precision='bf16'))
+    # bf16 is the JAX engine's policy and trains (tests/test_torch_bf16.py);
+    # any other value raises, as tests/test_mixed_precision.py holds JAX
+    with pytest.raises(NotImplementedError, match='mixed_precision'):
+        create_model(opt_with(mixed_precision='fp16'))
     with pytest.raises(NotImplementedError, match='optimizer'):
         create_model(opt_with(optim_g=dict(type='SGD', lr=1e-3)))
     with pytest.raises(NotImplementedError, match='perceptual'):
@@ -277,8 +279,8 @@ def _run_cli(tmp_path, *args):
 
 
 def test_train_cli(tmp_path):
-    """The CLI on the CPU with the shipped YAMLs' bf16 overridden; bf16
-    itself refuses; the default device is cuda."""
+    """The CLI on the CPU with the YAML's bf16 overridden to fp32; an
+    unknown precision (fp16) refuses; the default device is cuda."""
     yml = _write_train_yml(tmp_path, name='cli')
     proc = _run_cli(tmp_path, '-opt', yml, '--device', 'cpu', '--force_yml',
                     'train:mixed_precision=~', 'train:total_iter=2')
@@ -286,8 +288,10 @@ def test_train_cli(tmp_path):
     assert 'End of training' in proc.stderr
     assert osp.exists(tmp_path / 'experiments' / 'cli' / 'models' /
                       'net_g_latest.pth')
-    proc = _run_cli(tmp_path, '-opt', yml, '--device', 'cpu')
-    assert proc.returncode != 0 and 'A.15' in proc.stderr
+    proc = _run_cli(tmp_path, '-opt', yml, '--device', 'cpu', '--force_yml',
+                    'train:mixed_precision=fp16')
+    assert proc.returncode != 0
+    assert "NotImplementedError: mixed_precision 'fp16'" in proc.stderr
     if not torch.cuda.is_available():
         proc = _run_cli(tmp_path, '-opt', yml, '--force_yml',
                         'train:mixed_precision=~')

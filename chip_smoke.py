@@ -33,7 +33,9 @@ one flushed JSON line with its ``seconds``:
    dW) against autograd through the plain version, and the forward kernel
    against the plain forward, at the training shapes (n=20: 4 clips x 5
    frames of 64x64 LQ crops; L1/L2/L3 at 64, 32, 16 px) with offsets
-   beyond +-10 px; times by CUDA events beside the bounds;
+   beyond +-10 px; times by CUDA events beside the bounds (the
+   operations as 3xTF32 on the tensor cores, the kernel's arithmetic,
+   and beside it the bound on the fp32 pipe, named as such);
 7. train: EDVR-M trained from the golden weights through ``create_model``,
    ``feed_data`` and ``optimize_parameters`` on batches of 4 made from
    seeded in-memory clips by the port's ``paired_random_crop`` and
@@ -45,7 +47,8 @@ one flushed JSON line with its ``seconds``:
 8. kernel_blend_<level>: the packed route's blend GEMM kernel against its
    plain version on one deformable group at the inference shapes (NP =
    5 x P, width 9 x 128, cout 64), and at a ragged NP; times beside the
-   bound, the plain version and the GEMM alone (``torch.addmm``);
+   bound (3xTF32 operations vs bytes, and the fp32-pipe bound beside it),
+   the plain version and the GEMM alone (``torch.addmm``);
 9. kernel_gather_<shape>: the row-gather kernel, bitwise against
    ``index_select``, at the three shapes of
    ``scripts/dev/probe_mosaic_gather.py`` (3600/14400/57600 rows of 128,
@@ -110,7 +113,7 @@ sys.path.insert(0, ROOT)
 # the H100's peak rates, the bounds' denominators, and the CUDA-event timer
 # are the ablation tool's, so every kernel is bounded against one table
 from edvr_tpu_torch.tools.ablate_dcn import (  # noqa: E402
-    PEAK_BYTES, PEAK_OPS, cuda_ms)
+    PEAK_BYTES, PEAK_OPS, PEAK_TF32, cuda_ms)
 
 SEED = 0
 DCN_TOL = 1e-4     # kernel vs plain, fp32: same arithmetic, other order
@@ -294,8 +297,12 @@ def dcn_bound(x, off, mask, weight, bias):
 
 def dcn_bwd_bound(x, off, mask, weight):
     """The backward's bound: two contractions (dcol = W^T dout and dW),
-    each as many operations as the forward's; bytes of x, offset, mask,
-    weight and dout read once, dx, d_offset, d_mask and dW written once."""
+    each as many operations as the forward's, in fp32 taken as 3xTF32 on
+    the tensor cores (three TF32 products per fp32 product), in bf16 at the
+    bf16 rate; bytes of x, offset, mask, weight and dout read once, dx,
+    d_offset, d_mask and dW written once. The fifth value is the bound
+    with the operations on the fp32 pipe (the CUDA cores), that of a
+    contraction in fp32 FMAs, for comparison."""
     n, cin, h, w = x.shape
     cout = weight.shape[0]
     K = weight.shape[2] * weight.shape[3]
@@ -303,9 +310,12 @@ def dcn_bwd_bound(x, off, mask, weight):
     nbytes = x.element_size() * (
         2 * (x.numel() + off.numel() + mask.numel() + weight.numel())
         + n * cout * h * w)
-    t_ops, t_bytes = flops / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
+    t_ops = (3 * flops / PEAK_TF32 if x.dtype == torch.float32
+             else flops / PEAK_OPS[x.dtype])
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
+            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes,
+            max(flops / PEAK_OPS[torch.float32], t_bytes) * 1e3)
 
 
 def rel_err(got, want):
@@ -436,16 +446,20 @@ def packed_kernel_inputs(args):
 
 
 def blend_bound(g_cat, cs_cat, wexp_g, out_prev):
-    """The blend GEMM's bound: 2*NP*width*cout fp32 operations over the
-    fp32 peak vs its inputs read once and its output written once."""
+    """The blend GEMM's bound: 2*NP*width*cout fp32 operations taken as
+    3xTF32 on the tensor cores (three TF32 products each) vs its inputs
+    read once and its output written once. The fifth value is the bound
+    with the operations on the fp32 pipe (a GEMM in fp32 FMAs), for
+    comparison."""
     NP, width = g_cat.shape
     cout = wexp_g.shape[1]
     flops = 2 * NP * width * cout
     nbytes = 4 * (g_cat.numel() + cs_cat.numel() + wexp_g.numel()
                   + 2 * out_prev.numel())
-    t_ops, t_bytes = flops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
+    t_ops, t_bytes = 3 * flops / PEAK_TF32, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
+            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes,
+            max(flops / PEAK_OPS[torch.float32], t_bytes) * 1e3)
 
 
 def gather_bound(table, idx):
@@ -534,7 +548,7 @@ def fp64_check(grads, ref, names):
 def kernel_category(name):
     """The category of a CUDA kernel, by its name in a profiler trace."""
     low = name.lower()
-    for key in ('dcn_fwd', 'dcn_bwd_data', 'dcn_bwd_weight'):
+    for key in ('dcn_fwd', 'dcn_bwd'):
         if key in low:
             return key
     for category, keys in (
@@ -769,12 +783,13 @@ def main():
                 fwd_plain_ms = cuda_ms(
                     lambda: dcn.modulated_deform_conv_plain(*args, *geo, 1,
                                                             8), 5)
-            bound_ms, bound_by, flops, nbytes = dcn_bwd_bound(*args[:4])
+            bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = dcn_bwd_bound(
+                *args[:4])
             f_bound_ms, f_bound_by, _, _ = dcn_bound(*args)
             bwd_results[level] = dict(
                 max_abs_err=max(e['max_abs_err'] for e in errs.values()),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, bound_ms_fp32_pipe=fp32_pipe_ms)
             fwd_train[level] = dict(max_abs_err=fwd_err, ms=fwd_ms,
                                     plain_ms=fwd_plain_ms,
                                     bound_ms=f_bound_ms, bound_by=f_bound_by)
@@ -917,12 +932,14 @@ def main():
             library_ms = cuda_ms(
                 lambda: torch.addmm(args[3], blended, args[2]), 20)
             del blended
-            bound_ms, bound_by, flops, nbytes = blend_bound(*args)
+            bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = blend_bound(
+                *args)
             blend_results[level] = dict(
                 max_abs_err=max(v for k, v in errs.items()
                                 if k.startswith('err')),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, bound_ms_fp32_pipe=fp32_pipe_ms,
+                library_ms=library_ms)
             ph.info.update(
                 g_cat=list(args[0].shape), cs_cat=list(args[1].shape),
                 wexp_g=list(args[2].shape), c_per=c_per,
@@ -1251,13 +1268,15 @@ def main():
                 dout32 = dout.float()
                 bfp32_ms = cuda_ms(lambda: dcn.dcn_bwd_cuda(
                     dout32, *args32[:4], *geo, 8), 20)
-                b_bound_ms, b_bound_by, b_flops, b_nbytes = dcn_bwd_bound(
-                    *args[:4])
+                (b_bound_ms, b_bound_by, b_flops, b_nbytes,
+                 b_fp32_pipe_ms) = dcn_bwd_bound(*args[:4])
                 bf16_bwd[level] = dict(
                     max_abs_err=max((g.float() - w_.float()).abs().max()
                                     .item() for g, w_ in zip(got, want)),
                     ms=bms, plain_ms=bplain_ms, fp32_ms=bfp32_ms,
-                    bound_ms=b_bound_ms, bound_by=b_bound_by)
+                    bound_ms=b_bound_ms, bound_by=b_bound_by,
+                    bound_ms_fp32_pipe=b_fp32_pipe_ms,
+                    fp32_bound_ms=dcn_bwd_bound(*args32[:4])[0])
                 ph.info.update(bwd=dict(bf16_bwd[level], gradients=errs,
                                         tol_rel_to_max=BF16_BWD_TOL,
                                         gflop=b_flops / 1e9,
@@ -1496,11 +1515,14 @@ def main():
                                      for r in bwd_results.values()),
                   'ms': b1['ms'], 'plain_ms': b1['plain_ms'],
                   'bound_ms': b1['bound_ms'], 'bound_by': b1['bound_by'],
+                  'bound_ms_fp32_pipe': b1['bound_ms_fp32_pipe'],
                   'library_ms': None}
     for level, r in bwd_results.items():
         kernel_bwd.update({f'ms_{level}': r['ms'],
                            f'plain_ms_{level}': r['plain_ms'],
-                           f'bound_ms_{level}': r['bound_ms']})
+                           f'bound_ms_{level}': r['bound_ms'],
+                           f'bound_ms_fp32_pipe_{level}':
+                               r['bound_ms_fp32_pipe']})
     bl1 = blend_results['L1']
     kernel_blend = {'name': 'blend_matmul', 'route': 'cuda',
                     'source': 'edvr_tpu_torch/csrc/blend_matmul.cu',
@@ -1512,6 +1534,7 @@ def main():
                                        for r in blend_results.values()),
                     'ms': bl1['ms'], 'plain_ms': bl1['plain_ms'],
                     'bound_ms': bl1['bound_ms'], 'bound_by': bl1['bound_by'],
+                    'bound_ms_fp32_pipe': bl1['bound_ms_fp32_pipe'],
                     'library_ms': bl1['library_ms'],
                     'library': 'torch.addmm, the GEMM only',
                     'launches_train': packed_train_launches['blend_matmul']}
@@ -1519,6 +1542,8 @@ def main():
         kernel_blend.update({f'ms_{level}': r['ms'],
                              f'plain_ms_{level}': r['plain_ms'],
                              f'bound_ms_{level}': r['bound_ms'],
+                             f'bound_ms_fp32_pipe_{level}':
+                                 r['bound_ms_fp32_pipe'],
                              f'library_ms_{level}': r['library_ms']})
     gl1 = gather_results['L1']
     kernel_gather = {'name': 'row_gather', 'route': 'cuda',
@@ -1572,12 +1597,15 @@ def main():
         'max_abs_err': max(r['max_abs_err'] for r in bf16_bwd.values()),
         'ms': b1['ms'], 'plain_ms': b1['plain_ms'],
         'bound_ms': b1['bound_ms'], 'bound_by': b1['bound_by'],
+        'bound_ms_fp32_pipe': b1['bound_ms_fp32_pipe'],
         'library_ms': None}
     for level, r in bf16_bwd.items():
         kernel_bwd_bf16.update({f'ms_{level}': r['ms'],
                                 f'fp32_ms_{level}': r['fp32_ms'],
                                 f'plain_ms_{level}': r['plain_ms'],
-                                f'bound_ms_{level}': r['bound_ms']})
+                                f'bound_ms_{level}': r['bound_ms'],
+                                f'bound_ms_fp32_pipe_{level}':
+                                    r['bound_ms_fp32_pipe']})
     # the ablation variants: their main path is the timing tool's run
     kernels_ablate = [
         {'name': f'dcn_fwd_ablate_{mode}_{dname}', 'route': 'cuda',

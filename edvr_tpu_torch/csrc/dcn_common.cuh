@@ -118,11 +118,38 @@ __device__ __forceinline__ Sample sample_at(const T* offb, const T* mb, int g,
   return s;
 }
 
+// One corner's share of the masked bilinear sample of N channels: v[c] +=
+// its contribution for table values t (wya, wxb: the corner's row and
+// column factors). float: v += (wya * wxb) * t, the mask applied once at
+// the end (finish_column); bf16: v += bf16(bf16(wya * m * wxb) * t), as
+// band_forward rounds it.
+template <typename T, int N>
+__device__ __forceinline__ void add_corner(float* v, const float* t,
+                                           float wya, float wxb, float m) {
+  if constexpr (kBf16<T>) {
+    const float coef = round_bf16((wya * m) * wxb);
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] += round_bf16(coef * t[c]);
+  } else {
+    const float wgt = wya * wxb;
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] += wgt * t[c];
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void finish_column(float* v, float m) {
+  if constexpr (!kBf16<T>) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] *= m;
+  }
+}
+
 // The masked bilinear sample of C_PER channels (per-tap zero boundary:
 // out-of-image corners contribute nothing), corners in the order 00, 01,
-// 10, 11. float: v = (sum of coefficient x value) x mask, as the plain
-// version computes it. bf16: v = sum of bf16(bf16(ay * bx) x value), the
-// mask inside ay, as band_forward rounds it.
+// 10, 11 (add_corner). float: v = (sum of coefficient x value) x mask, as
+// the plain version computes it. bf16: v = sum of bf16(bf16(ay * bx) x
+// value), the mask inside ay, as band_forward rounds it.
 template <typename T, int C_PER>
 __device__ __forceinline__ void masked_column(const T* __restrict__ xg,
                                               const Sample& s, int w,
@@ -142,21 +169,10 @@ __device__ __forceinline__ void masked_column(const T* __restrict__ xg,
       float t[C_PER];
       load_f32<T, C_PER>(xg + ((size_t)(s.y0 + a) * w + (s.x0 + b)) * cin,
                          t);
-      if constexpr (kBf16<T>) {
-        const float coef = round_bf16((wy[a] * s.m) * wx[b]);
-#pragma unroll
-        for (int c = 0; c < C_PER; ++c) v[c] += round_bf16(coef * t[c]);
-      } else {
-        const float wgt = wy[a] * wx[b];
-#pragma unroll
-        for (int c = 0; c < C_PER; ++c) v[c] += wgt * t[c];
-      }
+      add_corner<T, C_PER>(v, t, wy[a], wx[b], s.m);
     }
   }
-  if constexpr (!kBf16<T>) {
-#pragma unroll
-    for (int c = 0; c < C_PER; ++c) v[c] *= s.m;
-  }
+  finish_column<T, C_PER>(v, s.m);
 }
 
 }  // namespace dcn

@@ -295,6 +295,11 @@ def _check_cuda_args(op, tensors, x, offset, mask, weight, bias, stride,
     return n, cin, h, w, cout, kh, kw, oh, ow
 
 
+# resident blocks per SM of the backward launch (csrc/dcn_bwd.cu asks for
+# two at EDVR-M's c_per 8), so that its persistent blocks fill the card in
+# one wave and its dW partials stay a few MB
+BWD_BLOCKS_PER_SM = 2
+
 # the kernels' element types, and the suffix of each one's entry name in
 # native.SIGNATURES and LAUNCHES ('dcn_fwd' is the float32 forward)
 KERNEL_DTYPES = {torch.float32: '', torch.bfloat16: '_bf16'}
@@ -354,9 +359,10 @@ def dcn_bwd_cuda(dout, x, offset, mask, weight, stride=1, padding=0,
     inputs, returns ``(dx, d_offset, d_mask, d_weight)``, the gradients
     that autograd through :func:`modulated_deform_conv_plain` gives (the
     bias gradient is ``dout.sum((0, 2, 3))``), each in its input's dtype.
-    In bfloat16 the kernel sums in float32: ``dx`` into a float32 buffer
-    (``dcn_bwd_bf16``; bf16 atomics would lose the sum) and ``d_weight``
-    from float32 partials, both cast here. ``dx`` is accumulated with
+    One launch computes all four (``dcn_bwd_f32`` or ``dcn_bwd_bf16``,
+    counted once). In bfloat16 the kernel sums in float32: ``dx`` into a
+    float32 buffer (bf16 atomics would lose the sum) and ``d_weight`` from
+    float32 partials, both cast here. ``dx`` is accumulated with
     atomics, so its low bits vary from run to run. Taps of 1x1 or 3x3
     only; raises on any input the kernel does not take.
     """
@@ -382,11 +388,13 @@ def dcn_bwd_cuda(dout, x, offset, mask, weight, stride=1, padding=0,
     dx_cl = torch.zeros(x_cl.shape, device=x.device, dtype=torch.float32)
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
-    # blocks of the weight-gradient launch: about eight per SM, each
-    # walking its share of the pixel tiles into one partial
+    # blocks per (deformable group, 64 output channels): BWD_BLOCKS_PER_SM
+    # per SM in all, each walking its share of the pixel tiles into one
+    # partial
     tiles = n * -(-(oh * ow) // 64)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nb = max(1, min(tiles, -(-8 * sms // (dg * -(-cout // 64)))))
+    nb = max(1, min(tiles, -(-BWD_BLOCKS_PER_SM * sms
+                             // (dg * -(-cout // 64)))))
     partial = torch.empty(nb, dg, kh * kw * c_per, cout, device=x.device,
                           dtype=torch.float32)
     with torch.cuda.device(x.device):

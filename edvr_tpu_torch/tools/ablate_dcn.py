@@ -40,6 +40,9 @@ DTYPES = {'fp32': torch.float32, 'bf16': torch.bfloat16}
 # bf16 dense on the tensor cores, device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
+# TF32 dense on the tensor cores: the rate of a float32 product taken in
+# 3xTF32 (three TF32 products per float32 product)
+PEAK_TF32 = 495e12
 
 # what each variant keeps of the components (a) fields, (b) coordinate and
 # coefficient math, (c) corner loads, (d) blend, (e) contraction, and its

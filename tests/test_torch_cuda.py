@@ -177,6 +177,11 @@ def _launches(**counts):
     return {k: counts.get(k, 0) for k in dcn.LAUNCHES}
 
 
+# the one-launch backward at c_per 1, 2, 8 and 32 with n > 1 images and 13
+# x 17 = 221 pixels, a ragged last 64-pixel tile
+FUSED_BWD_GEOS = [dict(n=3, cin=2 * c, cout=48, h=13, w=17, dg=2, far=0.1)
+                  for c in (1, 2, 8, 32)]
+
 # fp32 on both sides; sums over up to K*c_per*cout (dcol), n*P (dW) and the
 # scattered corners (dx, with atomics in a varying order) taken in another
 # order, so each gradient is held relative to its own largest entry
@@ -193,6 +198,7 @@ BWD_TOL = 1e-4
     dict(n=1, cin=32, cout=130, h=12, w=14, dg=2, far=0.1),    # c_per 16
     dict(n=1, cin=16, cout=16, h=19, w=23, dg=1, padding=0, dilation=2),
     dict(n=2, cin=16, cout=16, h=9, w=10, dg=2, k=1, padding=0),  # 1x1
+    *FUSED_BWD_GEOS,
 ])
 def test_bwd_kernel_matches_plain(cuda, geo):
     args, kw = _case(3, **geo)
@@ -354,6 +360,11 @@ def _blend_args(seed, NP, K, lanes, c_per, cout):
     (129, 1, 128, 32, 64),         # K=1 (tap_shared's warp)
     (65, 9, 128, 1, 8),
     (65, 9, 128, 2, 8),
+    # every c_per at K = 1 (a width the packed route never sends, which
+    # the wrapper takes) and 9, 777 rows (a ragged last block of 128) and
+    # one or two blocks of 64 output channels
+    *[(777, K, 128, c_per, cout) for c_per in (1, 2, 4, 8, 16, 32)
+      for K in (1, 9) for cout in (64, 128)],
 ])
 def test_blend_kernel_matches_plain(cuda, NP, K, lanes, c_per, cout):
     from edvr_tpu_torch.ops import dcn_blend
@@ -363,7 +374,9 @@ def test_blend_kernel_matches_plain(cuda, NP, K, lanes, c_per, cout):
     want = dcn_blend.blend_matmul_group_plain(*args, c_per)
     torch.cuda.synchronize()
     assert dcn.LAUNCHES['blend_matmul'] == before + 1
-    # fp32 both sides, the same products summed in another order
+    # fp32 products against 3xTF32 ones (about 2^-22 of each product) summed
+    # in another order: a few 1e-7 of max|out| over the 1152-deep sums;
+    # one TF32 product alone (2^-11) would miss the bound
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
@@ -515,6 +528,7 @@ BF16_GEOS = [
     dict(n=1, cin=4, cout=8, h=11, w=9, dg=4, bias=False),    # c_per 1
     dict(n=2, cin=32, cout=16, h=17, w=21, dg=1, stride=2),   # c_per 32
     dict(n=2, cin=16, cout=16, h=9, w=10, dg=2, k=1, padding=0),  # 1x1
+    *FUSED_BWD_GEOS,
 ]
 
 
@@ -745,3 +759,20 @@ def test_mp_train_steps_on_card(cuda, tmp_path):
         assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
         assert model.optimizer_g.state[p]['exp_avg'].dtype == torch.float32
         assert (p - want[n]).abs().max().item() <= 4 * 4e-4, n
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bwd_weight_gradient_is_deterministic(cuda, dtype):
+    """dW (each block's partial, then the wrapper's sum over partials), and
+    d_offset and d_mask, are bitwise the same in two runs; only dx is
+    summed by atomics."""
+    args, kw = _case(40, n=8, cin=64, cout=64, h=32, w=32, dg=8, far=0.05)
+    args = [a.to(dtype) for a in args]
+    dout = torch.randn(8, 64, 32, 32, generator=torch.Generator()
+                       .manual_seed(41)).to(cuda, dtype)
+    first = dcn.dcn_bwd_cuda(dout, *args[:4], **kw)
+    second = dcn.dcn_bwd_cuda(dout, *args[:4], **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('d_offset', 'd_mask', 'd_weight'), first[1:],
+                          second[1:]):
+        assert torch.equal(a, b), name

@@ -21,7 +21,10 @@ one flushed JSON line with its ``seconds``:
    process per source, all started together;
 3. kernel_<level>: the DCNv2 kernel against the plain version at the
    EDVR-M pyramid levels L1/L2/L3 (n=5 frames of a 180x320 clip), with
-   offsets beyond +-10 px; its time by CUDA events beside the bound;
+   offsets beyond +-10 px; its time by CUDA events beside the bound (the
+   contraction as 3xTF32 on the tensor cores, the kernel's arithmetic,
+   against the bytes; the fp32-pipe bound beside it) and the GEMM alone
+   (``torch.mm`` of a materialized column, a part of the function);
 4. golden: the reference's full-width EDVR-M output
    (tests/data/golden/arch_edvr_m_full.npz) reproduced on the card;
 5. main_path: a seeded 12-frame 180x320 clip restored through
@@ -34,8 +37,8 @@ one flushed JSON line with its ``seconds``:
    against the plain forward, at the training shapes (n=20: 4 clips x 5
    frames of 64x64 LQ crops; L1/L2/L3 at 64, 32, 16 px) with offsets
    beyond +-10 px; times by CUDA events beside the bounds (the
-   operations as 3xTF32 on the tensor cores, the kernel's arithmetic,
-   and beside it the bound on the fp32 pipe, named as such);
+   operations as 3xTF32 on the tensor cores, the kernels' arithmetic,
+   and beside them the bounds on the fp32 pipe, named as such);
 7. train: EDVR-M trained from the golden weights through ``create_model``,
    ``feed_data`` and ``optimize_parameters`` on batches of 4 made from
    seeded in-memory clips by the port's ``paired_random_crop`` and
@@ -67,7 +70,9 @@ one flushed JSON line with its ``seconds``:
     plain version at L1/L2/L3 and at the training shapes (train_L1/L2/L3),
     offsets beyond +-10 px, and at the training shapes the bf16 backward
     kernel against autograd through the bf16 plain version; times beside
-    the bf16 bounds and the fp32 kernels' times;
+    the bf16 bounds (the forward's two exact products per column entry,
+    its hi and lo, against the bytes), the bf16 GEMM alone and the fp32
+    kernels' times;
 14. mp_train: the same training with ``mixed_precision: bf16`` kept
     (MP_CUTS): 10 steps at batch 4, 4 dcn_fwd_bf16 and 4 dcn_bwd_bf16
     launches per step and no fp32 DCN launch, the TSA freeze and unfreeze,
@@ -243,6 +248,9 @@ MP_LEAF_COS_MIN = 0.5
 # to max|out|: float32 the same products in another order; bf16 one
 # output ulp
 ABLATE_TOL = {'fp32': 1e-5, 'bf16': 1e-2}
+# what the DCN forward's library_ms times: a part of its function
+GEMM_ONLY = ('torch.mm of a materialized column by the weights, the GEMM '
+             'only (cuBLAS, the inputs\' dtype)')
 
 
 class Phase:
@@ -281,8 +289,14 @@ def dcn_inputs(h, w, gen, n=5, c=64, dg=8, K=9):
 
 
 def dcn_bound(x, off, mask, weight, bias):
-    """Least time the card could take: compulsory bytes over the memory
-    rate vs operations over the peak of the inputs' dtype, the larger."""
+    """The forward's bound: compulsory bytes (each input read once, the
+    output written once) over the memory rate vs the contraction's
+    operations as the kernel takes them on the tensor cores, the larger:
+    fp32 in 3xTF32 (three TF32 products per fp32 product, at the TF32
+    rate), bf16 as two exact bf16 products per column entry (its hi and
+    lo) at the bf16 rate. The fifth value is the bound with the operations
+    on the fp32 pipe (the CUDA cores: a contraction in fp32 FMAs), for
+    comparison."""
     n, cin, h, w = x.shape
     cout = weight.shape[0]
     K = weight.shape[2] * weight.shape[3]
@@ -290,9 +304,28 @@ def dcn_bound(x, off, mask, weight, bias):
     nbytes = x.element_size() * (
         x.numel() + off.numel() + mask.numel() + weight.numel()
         + bias.numel() + n * cout * h * w)
-    t_ops, t_bytes = flops / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
+    t_ops = (3 * flops / PEAK_TF32 if x.dtype == torch.float32
+             else 2 * flops / PEAK_OPS[x.dtype])
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
+            'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes,
+            max(flops / PEAK_OPS[torch.float32], t_bytes) * 1e3)
+
+
+def gemm_only_ms(x, weight, iters=20):
+    """The forward's "GEMM only" yardstick: one ``torch.mm`` of a
+    materialized column of the call's shape (n*h*w, cin*K) by the (cin*K,
+    cout) weights, in the inputs' dtype (cuBLAS; TF32 off in fp32), timed
+    by CUDA events. It computes a part of the function (no sampling, no
+    column build); the port never calls it."""
+    n, cin, h, w = x.shape
+    cout = weight.shape[0]
+    col = torch.randn(n * h * w, weight[0].numel(), device=x.device,
+                      dtype=x.dtype)
+    wm = weight.reshape(cout, -1).t().contiguous()
+    ms = cuda_ms(lambda: torch.mm(col, wm), iters)
+    del col
+    return ms
 
 
 def dcn_bwd_bound(x, off, mask, weight):
@@ -660,9 +693,11 @@ def main():
             plain_ms = cuda_ms(
                 lambda: dcn.modulated_deform_conv_plain(*args, *geo, 1, 8),
                 5)
-            bound_ms, bound_by, flops, nbytes = dcn_bound(*args)
+            bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = dcn_bound(*args)
             results[level] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by)
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  bound_ms_fp32_pipe=fp32_pipe_ms,
+                                  library_ms=gemm_only_ms(args[0], args[3]))
             ph.info.update(shape=list(args[0].shape), tol=DCN_TOL,
                            gflop=flops / 1e9, mbytes=nbytes / 1e6,
                            **results[level])
@@ -785,14 +820,15 @@ def main():
                                                             8), 5)
             bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = dcn_bwd_bound(
                 *args[:4])
-            f_bound_ms, f_bound_by, _, _ = dcn_bound(*args)
+            f_bound_ms, f_bound_by, _, _, f_fp32_pipe_ms = dcn_bound(*args)
             bwd_results[level] = dict(
                 max_abs_err=max(e['max_abs_err'] for e in errs.values()),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_ms_fp32_pipe=fp32_pipe_ms)
             fwd_train[level] = dict(max_abs_err=fwd_err, ms=fwd_ms,
                                     plain_ms=fwd_plain_ms,
-                                    bound_ms=f_bound_ms, bound_by=f_bound_by)
+                                    bound_ms=f_bound_ms, bound_by=f_bound_by,
+                                    bound_ms_fp32_pipe=f_fp32_pipe_ms)
             ph.info.update(shape=list(args[0].shape), tol=BWD_TOL,
                            gradients=errs, gflop=flops / 1e9,
                            mbytes=nbytes / 1e6, **bwd_results[level],
@@ -1225,11 +1261,13 @@ def main():
                 plain_ms = cuda_ms(lambda: dcn.modulated_deform_conv_plain(
                     *args, *geo, 1, 8), 5)
             fp32_ms = cuda_ms(lambda: dcn.dcn_fwd_cuda(*args32, *geo, 8), 20)
-            bound_ms, bound_by, flops, nbytes = dcn_bound(*args)
+            bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = dcn_bound(*args)
             bf16_fwd[level] = dict(
                 max_abs_err=(got.float() - want.float()).abs().max().item(),
                 rel_err=err, ms=ms, plain_ms=plain_ms, fp32_ms=fp32_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms_fp32_pipe=fp32_pipe_ms,
+                library_ms=gemm_only_ms(args[0], args[3]))
             ph.info.update(shape=list(args[0].shape), dtype='bf16',
                            tol_rel_to_max_out=BF16_FWD_TOL,
                            gflop=flops / 1e9, mbytes=nbytes / 1e6,
@@ -1492,18 +1530,24 @@ def main():
               'max_abs_err': max(r['max_abs_err'] for r in results.values()),
               'ms': l1['ms'], 'plain_ms': l1['plain_ms'],
               'bound_ms': l1['bound_ms'], 'bound_by': l1['bound_by'],
-              'library_ms': None}
+              'bound_ms_fp32_pipe': l1['bound_ms_fp32_pipe'],
+              'library_ms': l1['library_ms'],
+              'library': GEMM_ONLY}
     for level, r in results.items():
         kernel.update({f'ms_{level}': r['ms'],
                        f'plain_ms_{level}': r['plain_ms'],
-                       f'bound_ms_{level}': r['bound_ms']})
+                       f'bound_ms_{level}': r['bound_ms'],
+                       f'bound_ms_fp32_pipe_{level}': r['bound_ms_fp32_pipe'],
+                       f'library_ms_{level}': r['library_ms']})
     kernel['launches_train'] = train_launches['dcn_fwd']
     kernel['max_abs_err'] = max(kernel['max_abs_err'],
                                 *(r['max_abs_err'] for r in fwd_train.values()))
     for level, r in fwd_train.items():
         kernel.update({f'ms_train_{level}': r['ms'],
                        f'plain_ms_train_{level}': r['plain_ms'],
-                       f'bound_ms_train_{level}': r['bound_ms']})
+                       f'bound_ms_train_{level}': r['bound_ms'],
+                       f'bound_ms_fp32_pipe_train_{level}':
+                           r['bound_ms_fp32_pipe']})
     b1 = bwd_results['L1']
     kernel_bwd = {'name': 'dcn_bwd', 'route': 'cuda',
                   'source': 'edvr_tpu_torch/csrc/dcn_bwd.cu',
@@ -1580,12 +1624,16 @@ def main():
         'max_abs_err': max(r['max_abs_err'] for r in bf16_fwd.values()),
         'ms': f1['ms'], 'plain_ms': f1['plain_ms'],
         'bound_ms': f1['bound_ms'], 'bound_by': f1['bound_by'],
-        'library_ms': None}
+        'bound_ms_fp32_pipe': f1['bound_ms_fp32_pipe'],
+        'library_ms': f1['library_ms'], 'library': GEMM_ONLY}
     for level, r in bf16_fwd.items():
         kernel_fwd_bf16.update({f'ms_{level}': r['ms'],
                                 f'fp32_ms_{level}': r['fp32_ms'],
                                 f'plain_ms_{level}': r['plain_ms'],
-                                f'bound_ms_{level}': r['bound_ms']})
+                                f'bound_ms_{level}': r['bound_ms'],
+                                f'bound_ms_fp32_pipe_{level}':
+                                    r['bound_ms_fp32_pipe'],
+                                f'library_ms_{level}': r['library_ms']})
     b1 = bf16_bwd['train_L1']
     kernel_bwd_bf16 = {
         'name': 'dcn_bwd_bf16', 'route': 'cuda',

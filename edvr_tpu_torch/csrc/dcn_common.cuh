@@ -91,17 +91,17 @@ struct Sample {
   int y0, x0;
 };
 
-template <typename T>
-__device__ __forceinline__ Sample sample_at(const T* offb, const T* mb, int g,
-                                            int k, int p, int P, int K,
-                                            int oy, int ox, int kw, int h,
-                                            int w, int stride, int pad,
-                                            int dil) {
+// The sample of tap k at output pixel (oy, ox) from its field values dy,
+// dx (the offset) and m (the mask), as floats.
+__device__ __forceinline__ Sample sample_from(float dy, float dx, float m,
+                                              int k, int oy, int ox, int kw,
+                                              int h, int w, int stride,
+                                              int pad, int dil) {
   Sample s;
   const int i = k / kw, j = k % kw;
-  s.dy = to_f32(offb[(size_t)(g * 2 * K + 2 * k) * P + p]);
-  s.dx = to_f32(offb[(size_t)(g * 2 * K + 2 * k + 1) * P + p]);
-  s.m = to_f32(mb[(size_t)(g * K + k) * P + p]);
+  s.dy = dy;
+  s.dx = dx;
+  s.m = m;
   const float cy = (float)(oy * stride - pad + i * dil) + s.dy;
   const float cx = (float)(ox * stride - pad + j * dil) + s.dx;
   s.y0f = floorf(cy);
@@ -116,6 +116,20 @@ __device__ __forceinline__ Sample sample_at(const T* offb, const T* mb, int g,
   s.y0 = s.any ? (int)s.y0f : 0;
   s.x0 = s.any ? (int)s.x0f : 0;
   return s;
+}
+
+// The same, reading the fields of (group g, tap k, pixel p) from the
+// offset (dg*2K rows) and mask (dg*K rows) planes of one image.
+template <typename T>
+__device__ __forceinline__ Sample sample_at(const T* offb, const T* mb, int g,
+                                            int k, int p, int P, int K,
+                                            int oy, int ox, int kw, int h,
+                                            int w, int stride, int pad,
+                                            int dil) {
+  return sample_from(to_f32(offb[(size_t)(g * 2 * K + 2 * k) * P + p]),
+                     to_f32(offb[(size_t)(g * 2 * K + 2 * k + 1) * P + p]),
+                     to_f32(mb[(size_t)(g * K + k) * P + p]), k, oy, ox, kw,
+                     h, w, stride, pad, dil);
 }
 
 // One corner's share of the masked bilinear sample of N channels: v[c] +=

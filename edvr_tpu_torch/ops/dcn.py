@@ -312,6 +312,23 @@ def _kernel_weight(weight, dg):
         1, 3, 2, 0).contiguous()
 
 
+# the forward kernel reads x group-major, (n, dg, h, w, c_per): a corner's
+# c_per channels are contiguous and the corners of neighbouring pixels lie
+# c_per elements apart, so a warp's gather touches few cache lines.
+# tools/ab_kernels.py clears it to run an earlier dcn_fwd.cu, which reads
+# x channels-last, (n, h, w, cin).
+FWD_X_GROUP_MAJOR = True
+
+
+def _fwd_x(x, dg):
+    """x (n, cin, h, w) in the forward kernel's layout (a copy)."""
+    n, cin, h, w = x.shape
+    if FWD_X_GROUP_MAJOR:
+        return x.detach().view(n, dg, cin // dg, h, w).permute(
+            0, 1, 3, 4, 2).contiguous()
+    return x.detach().permute(0, 2, 3, 1).contiguous()
+
+
 def dcn_fwd_cuda(x, offset, mask, weight, bias=None, stride=1, padding=0,
                  dilation=1, deformable_groups=1):
     """DCNv2 forward through the CUDA kernel (float32 or bfloat16,
@@ -332,9 +349,9 @@ def dcn_fwd_cuda(x, offset, mask, weight, bias=None, stride=1, padding=0,
 
     entry = 'dcn_fwd' + KERNEL_DTYPES[x.dtype]
     fn = native.load(entry)
-    # the kernel reads x channels-last (one contiguous read per corner) and
+    # the kernel reads x group-major (one contiguous read per corner) and
     # the weights as (dg, K, c_per, cout) slices
-    x_cl = x.detach().permute(0, 2, 3, 1).contiguous()
+    x_cl = _fwd_x(x, deformable_groups)
     wt = _kernel_weight(weight.detach(), deformable_groups)
     bias_c = bias.detach().contiguous() if bias is not None else None
     out = torch.empty(n, cout, oh, ow, device=x.device, dtype=x.dtype)

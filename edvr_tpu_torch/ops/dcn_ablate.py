@@ -178,7 +178,7 @@ def ablate_cuda(mode, x, offset, mask, weight, bias=None, stride=1,
     dname = _DTYPE_NAMES[x.dtype]
     entry = f'dcn_fwd_ablate_{dname}'
     fn = native.load(entry)
-    x_cl = x.permute(0, 2, 3, 1).contiguous()
+    x_cl = dcn._fwd_x(x, deformable_groups)
     wt = dcn._kernel_weight(weight, deformable_groups)
     bias_c = bias.contiguous() if bias is not None else None
     out = torch.empty(n, cout, oh, ow, device=x.device, dtype=x.dtype)

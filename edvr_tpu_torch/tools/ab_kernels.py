@@ -1,25 +1,35 @@
-"""Time earlier sources of the blend GEMM and the DCNv2 backward against
-the current ones, on a CUDA card, in one process.
+"""Time earlier sources of the DCNv2 forward, the blend GEMM and the DCNv2
+backward against the current ones, on a CUDA card, in one process.
 
-    python -m edvr_tpu_torch.tools.ab_kernels [OLD_BLEND=path] [OLD_BWD=path]
-        [--iters 20] [--ablate]
+    python -m edvr_tpu_torch.tools.ab_kernels [OLD_FWD=path]
+        [OLD_BLEND=path] [OLD_BWD=path] [--iters 20] [--ablate]
 
-``OLD_BLEND`` is an earlier ``csrc/blend_matmul.cu``, ``OLD_BWD`` an
-earlier ``csrc/dcn_bwd.cu``, each with the C entry points of the current
-one and the headers it includes beside it, e.g. from a git checkout::
+``OLD_FWD`` is an earlier ``csrc/dcn_fwd.cu``, ``OLD_BLEND`` an earlier
+``csrc/blend_matmul.cu``, ``OLD_BWD`` an earlier ``csrc/dcn_bwd.cu``, each
+with the C entry points of the current one and the headers it includes
+beside it, e.g. from a git checkout::
 
-    mkdir -p old && for f in blend_matmul.cu dcn_bwd.cu dcn_common.cuh; do
+    mkdir -p old && for f in dcn_fwd.cu blend_matmul.cu dcn_bwd.cu \
+        dcn_common.cuh mma_common.cuh; do
         git show HEAD~1:edvr_tpu_torch/csrc/$f > old/$f; done
 
 Each is built with the port's nvcc flags into ``edvr_tpu_torch/_build/ab``
 and bound in place of the current library behind the port's own wrapper
-(``ops/dcn_blend.py::blend_matmul_cuda``, ``ops/dcn.py::dcn_bwd_cuda``;
-the two-launch backward with its eight blocks per SM). Old and new are
-held against the plain version at each level (the blend at ``BLEND_TOL``
-of ``max|out|``; the backward at ``BWD_TOL`` / ``BF16_BWD_TOL`` of each
-gradient's largest entry, all from ``chip_smoke.py``), then timed by CUDA
-events over ``--iters`` warm calls in turns, old new new old, so that a
-drift of the card's clock falls on both:
+(``ops/dcn.py::dcn_fwd_cuda``, ``ops/dcn_blend.py::blend_matmul_cuda``,
+``ops/dcn.py::dcn_bwd_cuda``; the forward that reads x channels-last, the
+two-launch backward with its eight blocks per SM). Old and new are held against the plain version at each
+level (the forward at ``DCN_TOL`` absolute / ``BF16_FWD_TOL`` of
+``max|out|``; the blend at ``BLEND_TOL`` of ``max|out|``; the backward at
+``BWD_TOL`` / ``BF16_BWD_TOL`` of each gradient's largest entry, all from
+``chip_smoke.py``), then timed by CUDA events over ``--iters`` warm calls
+in turns, old new new old, so that a drift of the card's clock falls on
+both:
+
+* the forward at the inference shapes L1/L2/L3 (n=5 frames of a 180x320
+  clip) and the training shapes (n=20; 64/32/16 px), fp32 and bf16, with
+  each CUDA kernel's device time per call from ``torch.profiler``, the
+  bound and the GEMM alone (``torch.mm`` of a materialized column, a part
+  of the function);
 
 * the blend at the packed route's inference shapes L1/L2/L3 (one
   deformable group of an EDVR-M DCN call on a 180x320 clip, as
@@ -30,9 +40,9 @@ drift of the card's clock falls on both:
   ``torch.profiler`` (the old source's two launches apart).
 
 With ``--ablate`` it also builds the current sources with their
-measurement switches (``-DBLEND_ONE_PRODUCT``, ``-DBLEND_NO_SPLIT``;
-``-DDCN_BWD_NO_ATOMICS``, ``-DDCN_BWD_NO_GATHER``, ``-DDCN_BWD_NO_MMA``,
-``-DDCN_BWD_NO_ITEMS``,
+measurement switches (``-DDCN_FWD_ONE_PRODUCT``, ``-DDCN_FWD_NO_MMA``;
+``-DBLEND_ONE_PRODUCT``, ``-DBLEND_NO_SPLIT``; ``-DDCN_BWD_NO_ATOMICS``,
+``-DDCN_BWD_NO_GATHER``, ``-DDCN_BWD_NO_MMA``, ``-DDCN_BWD_NO_ITEMS``,
 whose results are wrong by design and are not checked) and times each
 against the shipped build at the L1 shapes, in turns, and the backward at
 1, 2 and 4 blocks per SM.
@@ -60,8 +70,10 @@ from edvr_tpu_torch import native
 ROOT = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
 AB_DIR = osp.join(native.BUILD_DIR, 'ab')
 # the kernel entries of each source that can be swapped
-OLD_SOURCES = {'OLD_BLEND': ('blend_matmul', ('blend_matmul',)),
+OLD_SOURCES = {'OLD_FWD': ('dcn_fwd', ('dcn_fwd', 'dcn_fwd_bf16')),
+               'OLD_BLEND': ('blend_matmul', ('blend_matmul',)),
                'OLD_BWD': ('dcn_bwd', ('dcn_bwd', 'dcn_bwd_bf16'))}
+ENTRIES = {source: entries for source, entries in OLD_SOURCES.values()}
 # blocks per SM of the two-launch backward that the fused kernel replaced:
 # its weight-gradient launch ran eight per SM
 OLD_BWD_BLOCKS_PER_SM = 8
@@ -69,6 +81,8 @@ OLD_BWD_BLOCKS_PER_SM = 8
 
 # the measurement switches of the current sources (--ablate)
 ABLATIONS = {
+    'dcn_fwd': {'one_product': ['-DDCN_FWD_ONE_PRODUCT'],
+                'no_mma': ['-DDCN_FWD_NO_MMA']},
     'blend_matmul': {'one_product': ['-DBLEND_ONE_PRODUCT'],
                      'no_split': ['-DBLEND_NO_SPLIT'],
                      'one_product_no_split': ['-DBLEND_ONE_PRODUCT',
@@ -101,6 +115,19 @@ def build_old(path: str, source: str, entries, tag='old',
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[entry] = fn
     return fns
+
+
+@contextlib.contextmanager
+def fwd_channels_last():
+    """For a block, hand the forward kernel x channels-last, (n, h, w,
+    cin), as earlier sources of ``csrc/dcn_fwd.cu`` read it."""
+    from edvr_tpu_torch.ops import dcn
+    saved = dcn.FWD_X_GROUP_MAJOR
+    dcn.FWD_X_GROUP_MAJOR = False
+    try:
+        yield
+    finally:
+        dcn.FWD_X_GROUP_MAJOR = saved
 
 
 @contextlib.contextmanager
@@ -152,6 +179,53 @@ def turns(runs: dict, iters: int) -> dict:
         each[name].append(chip_smoke.cuda_ms(runs[name], iters))
     return {'ms': {k: sum(v) / len(v) for k, v in each.items()},
             'ms_each_turn': each}
+
+
+def ab_fwd(old_fns, iters, gen, card):
+    import chip_smoke
+    from edvr_tpu_torch.ops import dcn
+    new_fns = {e: native.load(e) for e in old_fns}
+    levels = [(lv, hw, 5) for lv, hw in chip_smoke.LEVELS.items()]
+    levels += [(f'train_{lv}', hw, chip_smoke.TRAIN_N)
+               for lv, hw in chip_smoke.TRAIN_LEVELS.items()]
+    for dname, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        for level, (h, w), n in levels:
+            with torch.no_grad():
+                args = [a.to(dtype) for a in chip_smoke.dcn_inputs(
+                    h, w, gen, n=n)]
+                want = dcn.modulated_deform_conv_plain(*args, 1, 1, 1, 1, 8)
+                runs, errs, profiles = {}, {}, {}
+                for name, fns in (('old', old_fns), ('new', new_fns)):
+                    def run(fns=fns, old=name == 'old'):
+                        layout = (fwd_channels_last() if old
+                                  else contextlib.nullcontext())
+                        with bound_to(fns), layout:
+                            return dcn.dcn_fwd_cuda(*args, 1, 1, 1, 8)
+                    got = run()
+                    torch.cuda.synchronize()
+                    if dtype == torch.float32:
+                        errs[name] = (got - want).abs().max().item()
+                        tol = chip_smoke.DCN_TOL
+                    else:
+                        errs[name] = chip_smoke.rel_err(got, want)
+                        tol = chip_smoke.BF16_FWD_TOL
+                    if not errs[name] <= tol:
+                        raise AssertionError(f'dcn_fwd {name} {dname} '
+                                             f'{level}: {errs[name]} > {tol}')
+                    runs[name] = run
+                    profiles[name] = kernel_ms_per_call(run)
+                del want, got
+                timed = turns(runs, iters)
+                bound = chip_smoke.dcn_bound(*args)
+                library_ms = chip_smoke.gemm_only_ms(args[0], args[3], iters)
+            print(json.dumps({
+                'kernel': 'dcn_fwd' + ('' if dname == 'fp32' else '_bf16'),
+                'level': level, 'dtype': dname, 'shape': list(args[0].shape),
+                **timed, 'kernel_ms_per_call': profiles, 'err': errs,
+                'tol': tol, 'bound_ms': bound[0], 'bound_by': bound[1],
+                'bound_ms_fp32_pipe': bound[4], 'library_ms': library_ms,
+                'library': chip_smoke.GEMM_ONLY, 'card': card}), flush=True)
+            del args
 
 
 def ab_blend(old_fns, iters, gen, card):
@@ -244,8 +318,7 @@ def ablate(iters, gen, card):
     from edvr_tpu_torch.ops import dcn, dcn_blend
     variants = {}
     for source, switches in ABLATIONS.items():
-        entries = OLD_SOURCES['OLD_BLEND' if source == 'blend_matmul'
-                              else 'OLD_BWD'][1]
+        entries = ENTRIES[source]
         variants[source] = {'shipped': {e: native.load(e) for e in entries}}
         for name, defines in switches.items():
             variants[source][name] = build_old(
@@ -259,8 +332,24 @@ def ablate(iters, gen, card):
             each[name].append(chip_smoke.cuda_ms(runs[name], iters))
         return {k: sum(v) / len(v) for k, v in each.items()}
 
+    h, w = chip_smoke.LEVELS['L1']
+    for dname, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        with torch.no_grad():
+            args = [a.to(dtype) for a in chip_smoke.dcn_inputs(h, w, gen)]
+            runs, kernel_ms = {}, {}
+            for name, fns in variants['dcn_fwd'].items():
+                def run(fns=fns):
+                    with bound_to(fns):
+                        return dcn.dcn_fwd_cuda(*args, 1, 1, 1, 8)
+                runs[name] = run
+                kernel_ms[name] = sum(v for k, v in kernel_ms_per_call(run)
+                                      .items() if 'dcn_fwd' in k)
+            print(json.dumps({'ablate': 'dcn_fwd', 'level': 'L1',
+                              'dtype': dname, 'ms': timed(runs),
+                              'kernel_ms': kernel_ms, 'card': card}),
+                  flush=True)
+            del args
     with torch.no_grad():
-        h, w = chip_smoke.LEVELS['L1']
         _, (*args, c_per) = chip_smoke.packed_kernel_inputs(
             chip_smoke.dcn_inputs(h, w, gen))
         runs = {}
@@ -297,7 +386,8 @@ def ablate(iters, gen, card):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('sources', nargs='*', metavar='OLD_BLEND=path|OLD_BWD=path')
+    ap.add_argument('sources', nargs='*',
+                    metavar='OLD_FWD=path|OLD_BLEND=path|OLD_BWD=path')
     ap.add_argument('--iters', type=int, default=20)
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--ablate', action='store_true',
@@ -307,7 +397,8 @@ def main(argv=None):
     for item in opts.sources:
         key, _, path = item.partition('=')
         if key not in OLD_SOURCES or not path:
-            ap.error(f'expected OLD_BLEND=path or OLD_BWD=path, got {item!r}')
+            ap.error(f'expected OLD_FWD=path, OLD_BLEND=path or '
+                     f'OLD_BWD=path, got {item!r}')
         old[key] = path
     if not torch.cuda.is_available():
         print('ab_kernels: needs a CUDA card', file=sys.stderr)
@@ -323,8 +414,8 @@ def main(argv=None):
     for key, path in old.items():
         source, entries = OLD_SOURCES[key]
         fns = build_old(path, source, entries)
-        (ab_blend if key == 'OLD_BLEND' else ab_bwd)(fns, opts.iters, gen,
-                                                     card)
+        {'OLD_FWD': ab_fwd, 'OLD_BLEND': ab_blend,
+         'OLD_BWD': ab_bwd}[key](fns, opts.iters, gen, card)
     if opts.ablate:
         ablate(opts.iters, gen, card)
     print(card, flush=True)

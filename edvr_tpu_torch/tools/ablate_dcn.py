@@ -14,9 +14,10 @@ explicit ``torch.Generator``. Default shape: EDVR-M inference L1 (n=5,
 arguments are TPU tiling and have no counterpart.
 
 Prints one JSON line per variant: its ms, the ms it saves against
-``full``, and its own bound (the larger of its operations over the
-dtype's peak and its bytes over the memory rate, each input it reads
-counted once, its output once); then a line for the JAX v5 ablations
+``full``, and its own bound (the larger of its operations, in the time
+the kernel's arithmetic needs on the tensor cores and the fp32 pipe, and
+its bytes over the memory rate, each input it reads counted once, its
+output once); then a line for the JAX v5 ablations
 that have no counterpart here, and the card's name and power limit.
 """
 
@@ -77,7 +78,11 @@ def make_inputs(shape='l1', dtype=torch.bfloat16, seed=0, device='cuda'):
 def bound(mode, x, offset, mask, weight):
     """(bound ms, 'operations' or 'bytes', operations, bytes) of variant
     ``mode`` on these inputs: each input it reads counted once, the output
-    written once; its operations over the dtype's peak."""
+    written once. Its operations take the time the kernel's arithmetic
+    needs, the larger of two units: the contraction on the tensor cores
+    (fp32 in 3xTF32, three TF32 products per product at the TF32 rate;
+    bf16 as two exact products per column entry, its hi and lo, at the
+    bf16 rate) and the per-sample math on the fp32 pipe."""
     n, cin, h, w = x.shape
     cout, _, kh, kw = weight.shape
     K = kh * kw
@@ -86,18 +91,22 @@ def bound(mode, x, offset, mask, weight):
     points = n * h * w * K * DG            # (pixel, tap, group) points
     read = {'x': x.numel(), 'fields': offset.numel() + mask.numel(),
             'weight': weight.numel()}
-    ops, elems = {
-        'full': (contraction + 8 * samples, sum(read.values())),
-        'no_coef': (contraction + 4 * samples, sum(read.values())),
-        'int_coef': (contraction + samples, sum(read.values())),
-        'no_gather': (contraction, read['fields'] + read['weight']),
-        'coords_only': (20 * points, read['fields']),
-        'io_only': (2 * points, read['fields']),
+    mma, simt, elems = {
+        'full': (contraction, 8 * samples, sum(read.values())),
+        'no_coef': (contraction, 4 * samples, sum(read.values())),
+        'int_coef': (contraction, samples, sum(read.values())),
+        'no_gather': (contraction, 0, read['fields'] + read['weight']),
+        'coords_only': (0, 20 * points, read['fields']),
+        'io_only': (0, 2 * points, read['fields']),
     }[mode]
     nbytes = (elems + n * cout * h * w) * x.element_size()
-    t_ops, t_bytes = ops / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
+    t_mma = (3 * mma / PEAK_TF32 if x.dtype == torch.float32
+             else 2 * mma / PEAK_OPS[x.dtype])
+    t_ops = max(t_mma, simt / PEAK_OPS[torch.float32])
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            'operations' if t_ops >= t_bytes else 'bytes', ops, nbytes)
+            'operations' if t_ops >= t_bytes else 'bytes', mma + simt,
+            nbytes)
 
 
 def cuda_ms(fn, iters):

@@ -88,6 +88,74 @@ def test_kernel_matches_plain(cuda, geo):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
+# the tensor-core forward's slabs and chunks: EDVR-L's c_per 16 and cout 128
+# (two 64-channel chunks on one column), tap_shared's K=1 (eight groups in
+# one slab), and K*C_PER = 72 and 36 (a ragged last slab: half an m16n8k16
+# depth in bf16)
+TENSOR_CORE_GEOS = [
+    dict(n=2, cin=128, cout=128, h=23, w=29, dg=8, far=0.05),   # EDVR-L
+    dict(n=2, cin=64, cout=64, h=15, w=21, dg=8, k=1, padding=0,
+         far=0.05),                                              # K=1
+    dict(n=1, cin=8, cout=24, h=14, w=18, dg=1, far=0.1),       # 72 rows
+    dict(n=2, cin=4, cout=16, h=10, w=12, dg=1),                # 36 rows
+]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('geo', TENSOR_CORE_GEOS)
+def test_fwd_tensor_core_geometries(cuda, geo, dtype):
+    """The forward at the tensor-core kernel's slab and chunk edges, at the
+    forward's unchanged tolerances (fp32 1e-4 absolute, bf16 1e-2 of
+    max|out|)."""
+    args, kw = _case(20, **geo)
+    args = [a if a is None else a.to(dtype) for a in args]
+    key = 'dcn_fwd' + dcn.KERNEL_DTYPES[dtype]
+    before = dcn.LAUNCHES[key]
+    with torch.no_grad():
+        got = dcn.dcn_fwd_cuda(*args, **kw)
+        want = dcn.modulated_deform_conv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert dcn.LAUNCHES[key] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        assert _rel_err(got, want) <= BF16_FWD_TOL, _rel_err(got, want)
+
+
+def test_fwd_deep_n01_within_tol(cuda):
+    """c_per 32, cin 128, cout 128 and N(0, 1) weights (outputs up to
+    ~50), against the plain version in float64: the deep, large sums where
+    truncating accumulators drift. tests/test_torch_tf32split.py emulates
+    this case: a running sum misses 1e-4 (~5e-4), the kernel's 64-row slab
+    sums hold it (~3e-5)."""
+    args, kw = _case(21, n=1, cin=128, cout=128, h=16, w=20, dg=4,
+                     far=0.05)
+    rng = np.random.RandomState(22)
+    args[3] = torch.from_numpy(rng.randn(128, 128, 3, 3).astype(
+        np.float32)).cuda()
+    with torch.no_grad():
+        got = dcn.dcn_fwd_cuda(*args, **kw)
+        want = dcn.modulated_deform_conv_plain(
+            *(a.double() for a in args), **kw)
+    torch.cuda.synchronize()
+    assert want.abs().max() > 20
+    torch.testing.assert_close(got.double(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fwd_is_deterministic(cuda, dtype):
+    """No atomics: two runs of the forward are bitwise equal (cout 130:
+    two chunks on one column and a ragged block of channels)."""
+    args, kw = _case(23, n=3, cin=64, cout=130, h=27, w=35, dg=8, far=0.05)
+    args = [a.to(dtype) for a in args]
+    with torch.no_grad():
+        first = dcn.dcn_fwd_cuda(*args, **kw)
+        second = dcn.dcn_fwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_kernel_taps_wholly_outside(cuda):
     """Offsets that throw every tap far outside the image give the bias."""
     args, kw = _case(1, n=1, cin=64, cout=64, h=12, w=20, dg=8)

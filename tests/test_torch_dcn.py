@@ -146,3 +146,24 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     with pytest.raises(RuntimeError, match='nvcc not found'):
         native.nvcc_path()
+
+
+@pytest.mark.parametrize('group_major', [True, False])
+def test_fwd_kernel_layout_of_x(monkeypatch, group_major):
+    """The forward wrapper's copy of x: group-major (n, dg, h, w, c_per),
+    the layout csrc/dcn_fwd.cu reads (a corner's channels contiguous,
+    neighbouring pixels c_per elements apart), or channels-last (n, h, w,
+    cin) for an earlier source; element for element the same values."""
+    monkeypatch.setattr(dcn, 'FWD_X_GROUP_MAJOR', group_major)
+    n, cin, h, w, dg = 2, 12, 5, 7, 3
+    x = torch.from_numpy(np.random.RandomState(0).randn(n, cin, h, w)
+                         .astype(np.float32))
+    got = dcn._fwd_x(x, dg)
+    assert got.is_contiguous()
+    if group_major:
+        assert got.shape == (n, dg, h, w, cin // dg)
+        for g in range(dg):
+            for c in range(cin // dg):
+                assert torch.equal(got[:, g, :, :, c], x[:, g * 4 + c])
+    else:
+        assert torch.equal(got, x.permute(0, 2, 3, 1))

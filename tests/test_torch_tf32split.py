@@ -1,7 +1,8 @@
 """The arithmetic of the port's tensor-core kernels, emulated in plain
-torch on the CPU: 3xTF32 products (``csrc/blend_matmul.cu`` and the fp32
-``csrc/dcn_bwd.cu``) and the bf16 hi/lo split of a float32 column (the
-bf16 ``dcn_bwd.cu``'s weight gradient), each held against a float64
+torch on the CPU: 3xTF32 products (``csrc/blend_matmul.cu``, the fp32
+``csrc/dcn_bwd.cu`` and ``csrc/dcn_fwd.cu``) and the bf16 hi/lo split of
+a float32 column (the bf16 ``dcn_bwd.cu``'s weight gradient and the bf16
+``dcn_fwd.cu``'s contraction), each held against a float64
 reference at the kernels' tolerances. A TF32 value is a float32 rounded
 to nearest, ties away from zero, on its 13 low mantissa bits
 (``cvt.rna.tf32.f32``); a product of two is exact in float32, so a
@@ -190,3 +191,111 @@ def test_rz_chunk_sums_hold_blend_tol(seed, c_per):
     blended, w, prev, want = rz_blend_case(seed, c_per)
     got = prev + mma_3xtf32_rz(blended, w, chunk=32)
     assert np.abs(got - want).max() / np.abs(want).max() <= BLEND_TOL / 10
+
+
+# ---- the DCNv2 forward (csrc/dcn_fwd.cu): the column, built by the plain
+# version, contracted in 64-row slabs (DEPTH), each slab's products
+# truncated into fresh accumulators and joined by one float32 add
+
+DCN_TOL = 1e-4   # absolute: chip_smoke.py's fp32 forward gate
+SLAB = 64        # dcn_fwd.cu's DEPTH
+
+
+def dcn_column(seed, cin, dg, n=8, h=8, w=8, k=3, n01_weights=False,
+               cout=64):
+    """The float32 masked bilinear column (n*h*w pixels, dg*K*c_per rows
+    in the kernel's weight order) of inputs drawn as chip_smoke.py's
+    dcn_inputs draws them (offsets U(-2, 2), 5% of them 10-25 px away,
+    sigmoid masks), built by the port's plain DCN with one-hot weights;
+    and weights of that depth: U(-b, b), b = 1/sqrt(cin*K), or N(0, 1)."""
+    from edvr_tpu_torch.ops.dcn import modulated_deform_conv_plain
+    rng = np.random.RandomState(seed)
+    K, c_per = k * k, cin // dg
+    x = rng.randn(n, cin, h, w)
+    off = rng.rand(n, dg * 2 * K, h, w) * 4 - 2
+    far = rng.rand(*off.shape) < 0.05
+    off = np.where(far, (rng.rand(*off.shape) * 15 + 10)
+                   * np.sign(rng.rand(*off.shape) - 0.5), off)
+    mask = 1 / (1 + np.exp(-rng.randn(n, dg * K, h, w)))
+    rows = dg * K * c_per
+    sel = np.zeros((rows, cin, k, k))
+    for g in range(dg):
+        for t in range(K):
+            for c in range(c_per):
+                sel[(g * K + t) * c_per + c, g * c_per + c, t // k,
+                    t % k] = 1
+    col = modulated_deform_conv_plain(
+        *(torch.from_numpy(a.astype(np.float32)) for a in
+          (x, off, mask, sel)), None, 1, 1, 1, 1, dg)
+    col = col.permute(0, 2, 3, 1).reshape(-1, rows).numpy()
+    if n01_weights:
+        wt = rng.randn(rows, cout)
+    else:
+        wt = (rng.rand(rows, cout) * 2 - 1) / np.sqrt(rows)
+    return col, wt.astype(np.float32)
+
+
+def mma_bf16_hilo_rz(a, b, chunk):
+    """a @ b as the bf16 forward takes it: a (the float32 column) split
+    into bf16 hi + lo, b bf16; each m16n8k16 product adds 16 exact
+    products to its float32 accumulator and rounds toward zero (lo first,
+    then hi); every ``chunk`` rows the sum joins the running sum by one
+    float32 add."""
+    hi, lo = (x.numpy() for x in split_bf16(torch.from_numpy(a)))
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    part = np.zeros_like(acc)
+    for k0 in range(0, a.shape[1], 16):
+        k = slice(k0, k0 + 16)
+        for x in (lo, hi):
+            part = rz32(part.astype(np.float64)
+                        + x[:, k].astype(np.float64) @ b[k].astype(np.float64))
+        if chunk and (k0 + 16) % chunk == 0:
+            acc, part = acc + part, np.zeros_like(part)
+    return acc + part
+
+
+@pytest.mark.parametrize('name,cin,dg,cout', [
+    ('edvr_m', 64, 8, 64),     # 8 groups x 72 rows
+    ('edvr_l', 128, 8, 128),   # 8 groups x 144 rows
+])
+def test_rz_forward_slabs_hold_dcn_tol(name, cin, dg, cout):
+    """fp32 at EDVR-M's and EDVR-L's depth on chip_smoke-like values:
+    64-row slab sums in 3xTF32 (truncating accumulators) hold DCN_TOL
+    against float64 a hundredfold (~5e-7 of outputs ~1). At these depths
+    and values a plain running sum holds it too (~5e-6 and ~8e-6): the
+    slabs are for deeper, larger sums (the next test)."""
+    col, wt = dcn_column(0, cin, dg, cout=cout)
+    want = col.astype(np.float64) @ wt.astype(np.float64)
+    slabs = mma_3xtf32_rz(col, wt, chunk=SLAB)
+    running = mma_3xtf32_rz(col, wt, chunk=0)
+    assert np.abs(slabs - want).max() <= DCN_TOL / 100
+    assert np.abs(running - want).max() <= DCN_TOL
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_rz_forward_deep_n01(seed):
+    """The card test's deep case (c_per 32, cin 128, cout 128, N(0, 1)
+    weights; outputs up to ~50): a running sum of truncated products
+    misses DCN_TOL (~5e-4), 64-row slab sums hold it (~3e-5)."""
+    col, wt = dcn_column(seed, 128, 4, n=5, cout=128, n01_weights=True)
+    want = col.astype(np.float64) @ wt.astype(np.float64)
+    assert np.abs(mma_3xtf32_rz(col, wt, chunk=0) - want).max() > DCN_TOL
+    assert np.abs(mma_3xtf32_rz(col, wt, chunk=SLAB)
+                  - want).max() <= DCN_TOL / 2
+
+
+@pytest.mark.parametrize('cin,dg', [(64, 8), (128, 8)])
+def test_bf16_hi_lo_column_product(cin, dg):
+    """bf16: the float32 column split into bf16 hi + lo, each product with
+    the bf16 weights exact, slab sums truncated: the float32 column's
+    product to ~3e-6 of max|out|, far inside BF16_FWD_TOL (1e-2 of
+    max|out|, one output ulp); the column rounded once to bf16 instead
+    moves it by ~2e-3, a rounding point band_forward does not have."""
+    col, wt = dcn_column(1, cin, dg, cout=cin)
+    wt = torch.from_numpy(wt).to(torch.bfloat16).float().numpy()
+    want = col.astype(np.float64) @ wt.astype(np.float64)
+    scale = np.abs(want).max()
+    got = mma_bf16_hilo_rz(col, wt, chunk=SLAB)
+    assert np.abs(got - want).max() / scale <= 1e-5
+    one = torch.from_numpy(col).to(torch.bfloat16).double().numpy() @ wt
+    assert np.abs(one - want).max() / scale > 1e-4

@@ -4,7 +4,9 @@
 
 Drives the port's paths at EDVR-M x4 full width (64 features, 5 frames,
 dg=8, 5+10 blocks, TSA; fp32 with TF32 off, and the bf16 mixed-precision
-training step of the shipped YAML): whole-clip inference
+training step of the shipped YAML), and EDVR-L's test configurations at
+theirs (128 features, 5 + 40 blocks; x4 SR, deblur with HR input, SRblur,
+Vimeo90K per window, pyramid clip mode, the packed route): whole-clip inference
 (``options/test/EDVR/test_EDVR_M_x4_SR_REDS.yml``, window mode,
 win_batch=1) and training (``options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml``)
 on the direct DCN kernels, both again through the packed DCN route
@@ -87,6 +89,38 @@ one flushed JSON line with its ``seconds``:
     (``ops/dcn_ablate.py``) against its plain version at EDVR-M L1 in fp32
     and bf16, then the timing table of
     ``python -m edvr_tpu_torch.tools.ablate_dcn``, one line per variant.
+16-21 run in a child process (``chip_smoke.py --edvr-l OUT``) under the
+test CLI's cuDNN policy (``edvr_tpu_torch.test.INFERENCE_CUDNN_ENV``, read
+at a process's first convolution), as ``python -m edvr_tpu_torch.test``
+runs them; the phases before keep PyTorch's default, as the training CLI
+does.
+
+16. kernel_l_<level>: the DCNv2 forward kernel at EDVR-L's shapes (128
+    features, dg 8: c_per 16, cout 128) at L1/L2/L3 of 5 frames and at L1
+    of 7 (L1_n7), as kernel_<level>;
+17. edvr_l_main_path: EDVR-L (``options/test/EDVR/test_EDVR_L_x4_SR_REDS.yml``,
+    5 + 40 blocks, TSA) with seeded weights (``seeded_edvr``: offsets of up
+    to 24 px) loaded strictly from a .pth, restoring the 12-frame clip
+    through ``create_model`` and ``_clip_validation`` (4 dcn_fwd per
+    window); ms per window, network ms per window, peak memory, and one
+    window against the plain CPU path;
+18. edvr_l_pyramid: the same clip through ``make_clip_restore_fn`` in
+    pyramid mode against window mode (1e-5), EDVR-L and EDVR-M, each mode
+    timed in turns (window, pyramid, pyramid, window);
+19. edvr_l_deblur: ``test_EDVR_L_deblur_REDS.yml`` (HR input and
+    pre-deblur) on a seeded 6-frame 720x1280 clip through the engine, one
+    window's HR crop against the plain CPU path; and
+    ``test_EDVR_L_x4_SRblur_REDS.yml`` (pre-deblur on LQ input) on one
+    window, an LQ crop of it against the CPU;
+20. edvr_l_vimeo: ``test_EDVR_L_x4_SR_Vimeo90K.yml`` (7 frames, the
+    per-window protocol) over seeded septuplets on disk (LQ 64x112, GT
+    256x448) through ``VideoTestVimeo90KDataset`` and ``validation``:
+    PSNR and ms per sequence, each window's result against the direct
+    forward of the same window;
+21. packed_edvr_l: the blend GEMM (L1/L2/L3) and row-gather (L1) kernels
+    at EDVR-L's packed shapes (4 pixels per 128-lane row, width 9 x 128,
+    cout 128) against their plain versions, then EDVR-L on the packed route
+    (``EDVR_TPU_DCN_PALLAS=1``) on a 5-frame clip against the direct route.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -107,6 +141,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -251,6 +286,54 @@ ABLATE_TOL = {'fp32': 1e-5, 'bf16': 1e-2}
 # what the DCN forward's library_ms times: a part of its function
 GEMM_ONLY = ('torch.mm of a materialized column by the weights, the GEMM '
              'only (cuBLAS, the inputs\' dtype)')
+
+
+# EDVR-L, the paper's published models (options/test/EDVR/test_EDVR_L_*.yml)
+# at full width: 128 features, dg 8 (c_per 16, cout 128 in every DCN), 5 +
+# 40 blocks, TSA. The published checkpoints are not in the repo, so the
+# weights are seeded (seeded_edvr) and the REDS4, Vimeo90K data synthetic
+EDVR_L_NET = dict(EDVR_M_OPT['network_g'], num_feat=128,
+                  num_reconstruct_block=40)
+EDVR_L_OPT = dict(EDVR_M_OPT, name='EDVR_L_x4_SR_REDS', network_g=EDVR_L_NET)
+# test_EDVR_L_deblur_REDS.yml (deblurcomp is the same network) and
+# test_EDVR_L_x4_SRblur_REDS.yml
+EDVR_L_DEBLUR_OPT = dict(EDVR_M_OPT, name='EDVR_L_deblur_REDS',
+                         network_g=dict(EDVR_L_NET, hr_in=True,
+                                        with_predeblur=True))
+EDVR_L_SRBLUR_NET = dict(EDVR_L_NET, with_predeblur=True)
+# test_EDVR_L_x4_SR_Vimeo90K.yml: 7 frames, per-window validation
+EDVR_L_VIMEO_OPT = {
+    'name': 'EDVR_L_x4_SR_Vimeo90K', 'model_type': 'VideoBaseModel',
+    'scale': 4, 'num_gpu': 1, 'manual_seed': 0,
+    'datasets': {'test_1': {
+        'name': 'Vimeo90K', 'type': 'VideoTestVimeo90KDataset',
+        'dataroot_gt': None, 'dataroot_lq': None, 'meta_info_file': None,
+        'io_backend': {'type': 'disk'}, 'cache_data': False, 'num_frame': 7,
+        'padding': 'reflection_circle'}},
+    'network_g': dict(EDVR_L_NET, num_frame=7),
+    'path': {'pretrain_network_g': None, 'strict_load_g': True},
+    'val': {'save_img': False, 'suffix': None,
+            'metrics': EDVR_M_OPT['val']['metrics']},
+}
+# a fresh EDVR's conv_offset is zero (so its DCNs would sample on the grid):
+# the seeded packs' offset rows are scaled until the largest |offset| each
+# sends on the phase's first window is this many pixels
+OFFSET_PX = 24.0
+# pyramid against window clip mode on the card: the same ops on the same
+# windows, batched otherwise
+MODE_TOL = 1e-5
+L_CLIP = (12, 180, 320)             # frames, LQ height, width (REDS4's size)
+DEBLUR_T = 6                        # frames of the 720x1280 HR deblur clip
+DEBLUR_CPU_CROP = (256, 256)        # HR crop of the deblur window's CPU check
+SRBLUR_CPU_CROP = (96, 160)         # LQ crop of the SRblur window's CPU check
+VIMEO_SEQS = 4                      # synthetic septuplets, LQ 64x112
+PACKED_L_T = 5                      # frames of packed_edvr_l's clip (>= 5)
+L_CUTS = ['pretrain: the published EDVR-L checkpoint (not in the repo) -> '
+          'seeded weights (torch seed 0, BasicSR init) with each DCN pack\'s '
+          f'offset rows drawn and scaled to offsets of up to {OFFSET_PX} px, '
+          'strict load from a .pth',
+          'data: REDS4 / Vimeo90K (not in the repo) -> seeded synthetic '
+          'clips']
 
 
 class Phase:
@@ -505,6 +588,14 @@ def gather_bound(table, idx):
     return nbytes / PEAK_BYTES * 1e3, 'bytes', nbytes, rows_read
 
 
+def dcn_packs(net):
+    """An EDVR's four alignment packs (L3, L2, L1, cascade) by name."""
+    align = net.pcd_align
+    packs = {f'dcn_pack.{lv}': align.dcn_pack[lv] for lv in ('l3', 'l2', 'l1')}
+    packs['cas_dcnpack'] = align.cas_dcnpack
+    return packs
+
+
 def record_sample_coords(net):
     """Forward hooks on every alignment pack's ``conv_offset`` of an EDVR:
     each call appends the float32 sample coordinates (cy, cx) of every
@@ -533,10 +624,7 @@ def record_sample_coords(net):
                 ((ys + off[:, :, :, 0]).cpu(), (xs + off[:, :, :, 1]).cpu()))
         return fn
 
-    align = net.pcd_align
-    packs = {f'dcn_pack.{lv}': align.dcn_pack[lv] for lv in ('l3', 'l2', 'l1')}
-    packs['cas_dcnpack'] = align.cas_dcnpack
-    for name, pack in packs.items():
+    for name, pack in dcn_packs(net).items():
         K = 1 if isinstance(pack, WarpAlignPack) else 9
         handles.append(pack.conv_offset.register_forward_hook(hook(name, K)))
     return records, handles
@@ -642,6 +730,532 @@ def step_grads(model, batch, it):
             model.net_g.named_parameters()}
 
 
+def dcn_fwd_check(args, tag, ph):
+    """The fp32 DCN forward kernel against the plain version on ``args``
+    (x, offset, mask, weight, bias; stride, padding and dilation 1, dg 8):
+    max abs error (fails above DCN_TOL), ms by CUDA events beside the
+    plain version's, the bound and the GEMM alone. Returns the readings
+    and puts them in the phase's line."""
+    from edvr_tpu_torch.ops import dcn
+    geo = (1, 1, 1)  # stride, padding, dilation
+    with torch.no_grad():
+        got = dcn.dcn_fwd_cuda(*args, *geo, 8)
+        want = dcn.modulated_deform_conv_plain(*args, *geo, 1, 8)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err <= DCN_TOL:
+            raise AssertionError(f'dcn_fwd {tag}: max abs err {err} > '
+                                 f'{DCN_TOL}')
+        del got, want
+        ms = cuda_ms(lambda: dcn.dcn_fwd_cuda(*args, *geo, 8), 20)
+        plain_ms = cuda_ms(
+            lambda: dcn.modulated_deform_conv_plain(*args, *geo, 1, 8), 5)
+    bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = dcn_bound(*args)
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  bound_ms_fp32_pipe=fp32_pipe_ms,
+                  library_ms=gemm_only_ms(args[0], args[3]))
+    ph.info.update(shape=list(args[0].shape), tol=DCN_TOL,
+                   gflop=flops / 1e9, mbytes=nbytes / 1e6, **result)
+    return result
+
+
+def blend_check(cases, c_per, tag, ph):
+    """The blend GEMM kernel against its plain version on each case of
+    (g_cat, cs_cat, wexp_g, out_prev) (fails above BLEND_TOL of max|out|),
+    then ms of the first case by CUDA events beside the plain version, the
+    bound and ``torch.addmm`` (the GEMM alone). Returns the readings and
+    puts them in the phase's line."""
+    from edvr_tpu_torch.ops import dcn_blend
+    errs = {}
+    with torch.no_grad():
+        for case_tag, a in cases.items():
+            got = dcn_blend.blend_matmul_cuda(*a, c_per)
+            want = dcn_blend.blend_matmul_group_plain(*a, c_per)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            errs[f'err{case_tag}'] = err
+            errs[f'max_abs_out{case_tag}'] = scale
+            if not err <= BLEND_TOL * scale:
+                raise AssertionError(
+                    f'blend_matmul {tag}{case_tag}: max abs err {err} > '
+                    f'{BLEND_TOL} x max|out| {scale}')
+            del got, want
+        args = cases['']
+        ms = cuda_ms(lambda: dcn_blend.blend_matmul_cuda(*args, c_per), 20)
+        plain_ms = cuda_ms(lambda: dcn_blend.blend_matmul_group_plain(
+            *args, c_per), 5)
+        blended = args[0] * args[1].repeat_interleave(c_per, 1)
+        library_ms = cuda_ms(
+            lambda: torch.addmm(args[3], blended, args[2]), 20)
+        del blended
+    bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = blend_bound(*args)
+    result = dict(max_abs_err=max(v for k, v in errs.items()
+                                  if k.startswith('err')),
+                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, bound_ms_fp32_pipe=fp32_pipe_ms,
+                  library_ms=library_ms)
+    ph.info.update(
+        g_cat=list(args[0].shape), cs_cat=list(args[1].shape),
+        wexp_g=list(args[2].shape), c_per=c_per,
+        tol_rel_to_max_out=BLEND_TOL, gflop=flops / 1e9,
+        mbytes=nbytes / 1e6, **errs, **result,
+        library='torch.addmm(out_prev, blended, wexp_g): the GEMM alone, '
+                'the blend formed beforehand')
+    return result
+
+
+def gather_check(table, rows, tag, ph):
+    """The row-gather kernel, bitwise against ``index_select``, then ms by
+    CUDA events beside the plain version, the bound and
+    ``torch.index_select``. Returns the readings and puts them in the
+    phase's line."""
+    from edvr_tpu_torch.ops import gather
+    with torch.no_grad():
+        got = gather.row_gather_cuda(table, rows)
+        want = gather.row_gather_plain(table, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f'row_gather {tag}: not bitwise equal to '
+                                 'index_select')
+        err = (got - want).abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: gather.row_gather_cuda(table, rows), 20)
+        plain_ms = cuda_ms(lambda: gather.row_gather_plain(table, rows), 20)
+        library_ms = cuda_ms(lambda: torch.index_select(table, 0, rows), 20)
+    bound_ms, bound_by, nbytes, rows_read = gather_bound(table, rows)
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=library_ms)
+    ph.info.update(table=list(table.shape), gathers=rows.shape[0],
+                   distinct_rows=rows_read, bitwise_equal=True,
+                   mbytes=nbytes / 1e6, **result,
+                   library='torch.index_select(table, 0, idx)')
+    return result
+
+
+def offset_ranges(net, window):
+    """The least and largest offset that each DCN pack of an EDVR sends on
+    ``window`` (the offset rows of its ``conv_offset`` output)."""
+    ranges, handles = {}, []
+    for name, pack in dcn_packs(net).items():
+        def hook(module, inputs, out, name=name):
+            off = out[:, :out.shape[1] * 2 // 3]
+            ranges[name] = [off.min().item(), off.max().item()]
+        handles.append(pack.conv_offset.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            net(window)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return ranges
+
+
+def seeded_edvr(net_opt, window, gen):
+    """An EDVR of ``net_opt`` on the card with seeded weights: BasicSR's
+    init from torch seed SEED (as ``create_model`` draws it), then each DCN
+    pack's ``conv_offset`` weights (zero in a fresh EDVR) drawn from
+    N(0, 1e-3) and its offset rows scaled, pack by pack on ``window``, so
+    that the largest |offset| the pack sends is OFFSET_PX; the mask rows
+    keep their small draw. Returns the net and each pack's offset range."""
+    from edvr_tpu_torch.archs import define_network
+    torch.manual_seed(SEED)
+    net = define_network(copy.deepcopy(net_opt)).cuda().eval()
+    packs = dcn_packs(net)
+    with torch.no_grad():
+        for pack in packs.values():
+            w = pack.conv_offset.weight
+            w.copy_(torch.randn(w.shape, generator=gen) * 1e-3)
+        # two rounds: the cascade's input moves with L1's output
+        for _ in range(2):
+            ranges = offset_ranges(net, window)
+            for name, pack in packs.items():
+                rows = pack.conv_offset.weight.shape[0] * 2 // 3
+                pack.conv_offset.weight[:rows] *= (
+                    OFFSET_PX / max(abs(v) for v in ranges[name]))
+    return net, offset_ranges(net, window)
+
+
+def restore_ms(restore, clip, idx):
+    """ms per window of one whole-clip restore, host clock around work
+    that ends in ``torch.cuda.synchronize()``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore(clip, idx)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(idx) * 1e3
+
+
+def engine_run(run):
+    """``run(name)`` (one validation pass of the engine) timed after a
+    warm-up pass (cuDNN's algorithm choice, the lazy kernel load), the
+    launch counts set to 0 just before it and read just after: (seconds,
+    launches, peak device bytes)."""
+    from edvr_tpu_torch import native
+    run('warmup')
+    native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run('timed')
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, dict(native.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def engine_model(opt_template, state, tmp, name):
+    """``create_model`` of the option dict with ``state`` saved as its
+    ``pretrain_network_g`` (.pth, strict load), on the card."""
+    from edvr_tpu_torch.models import create_model
+    from edvr_tpu_torch.utils.options import parse_dict
+    opt = parse_dict(json.loads(json.dumps(opt_template)), is_train=False,
+                     root=tmp)
+    opt['device'] = 'cuda'
+    ckpt = osp.join(tmp, f'{name}.pth')
+    torch.save({'params': {k: v.cpu() for k, v in state.items()}}, ckpt)
+    opt['path']['pretrain_network_g'] = ckpt
+    return opt, create_model(opt)
+
+
+def window_vs_cpu(net, net_opt, window):
+    """One window through ``net`` on the card and through the plain CPU
+    path with the same weights: (max abs err, card output, CPU seconds)."""
+    from edvr_tpu_torch.archs import define_network
+    with torch.no_grad():
+        on_card = net(window.cuda()).cpu()
+        cpu_net = define_network(copy.deepcopy(net_opt)).eval()
+        cpu_net.load_state_dict({k: v.cpu() for k, v in
+                                 net.state_dict().items()}, strict=True)
+        t0 = time.perf_counter()
+        on_cpu = cpu_net(window)
+        cpu_secs = time.perf_counter() - t0
+    err = (on_card - on_cpu).abs().max().item()
+    if not (on_card.shape == on_cpu.shape and torch.isfinite(on_card).all()
+            and err <= GOLDEN_TOL):
+        raise AssertionError(f'window vs plain CPU path: shape '
+                             f'{tuple(on_card.shape)}, max abs err {err} > '
+                             f'{GOLDEN_TOL}')
+    return err, on_card, cpu_secs
+
+
+def write_png(path, frame):
+    """A (3, h, w) RGB frame in [0, 1] as an 8-bit BGR PNG."""
+    import cv2
+    img = (frame.permute(1, 2, 0).numpy()[:, :, ::-1] * 255.).round()
+    os.makedirs(osp.dirname(path), exist_ok=True)
+    if not cv2.imwrite(path, img.astype(np.uint8)):
+        raise IOError(f'cannot write {path}')
+
+
+def write_vimeo(root, gen, seqs, lq_hw):
+    """Seeded Vimeo90K septuplets on disk: ``<lq|gt>/<seq>/im1..im7.png``
+    (LQ, the 4x box-downsampled GT) with ``im4.png`` as GT, and a meta-info
+    file listing them."""
+    h, w = lq_hw
+    write = write_png
+    for seq in seqs:
+        lq, gt = seeded_clip(7, h, w, gen)
+        for i in range(7):
+            write(osp.join(root, 'lq', seq, f'im{i + 1}.png'), lq[i])
+        write(osp.join(root, 'gt', seq, 'im4.png'), gt[3])
+    meta = osp.join(root, 'meta_info.txt')
+    with open(meta, 'w') as f:
+        f.writelines(f'{s} ({4 * h},{4 * w},3)\n' for s in seqs)
+    return meta
+
+
+def edvr_l_phases(gen, smi, golden_state, golden_config):
+    """The EDVR-L phases (kernel_l_*, edvr_l_main_path, edvr_l_pyramid,
+    edvr_l_deblur, edvr_l_vimeo, packed_edvr_l); returns their readings
+    for the kernels line."""
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.archs import define_network
+    from edvr_tpu_torch.archs.edvr_arch import (clip_window_indices,
+                                                make_clip_restore_fn)
+    from edvr_tpu_torch.data import create_dataloader, create_dataset
+    from edvr_tpu_torch.metrics import calculate_psnr
+    from edvr_tpu_torch.utils import tensor2img
+    out = {'kernel': {}, 'launches': {}, 'blend': {}, 'gather': {}}
+
+    # the DCN forward at EDVR-L's shapes: c_per 16, cout 128
+    levels = [(lv, hw, 5) for lv, hw in LEVELS.items()]
+    levels.append(('L1_n7', LEVELS['L1'], 7))  # Vid4 / Vimeo90K windows
+    for level, (h, w), n in levels:
+        with Phase(f'kernel_l_{level}') as ph:
+            out['kernel'][level] = dcn_fwd_check(
+                dcn_inputs(h, w, gen, n=n, c=128), f'EDVR-L {level}', ph)
+            ph.info['card'] = smi
+
+    T, h, w = L_CLIP
+    idx = clip_window_indices(T, 5, 'reflection_circle')
+    with Phase('edvr_l_main_path') as ph, tempfile.TemporaryDirectory() as tmp:
+        # the REDS4 protocol from disk: a seeded clip written as PNGs, read
+        # by VideoTestDataset (cache_data), restored by the engine's
+        # validation in clip mode
+        lq_clip, gt_clip = seeded_clip(T, h, w, gen)
+        root = osp.join(tmp, 'reds4')
+        for i in range(T):
+            write_png(osp.join(root, 'lq', '000', f'{i:08d}.png'),
+                      lq_clip[i])
+            write_png(osp.join(root, 'gt', '000', f'{i:08d}.png'),
+                      gt_clip[i])
+        l_opt = json.loads(json.dumps(EDVR_L_OPT))
+        l_opt['datasets']['test_1'].update(dataroot_gt=f'{root}/gt',
+                                           dataroot_lq=f'{root}/lq')
+        dataset_opt = dict(l_opt['datasets']['test_1'], phase='test')
+        dataset = create_dataset(dataset_opt)
+        loader = create_dataloader(dataset, dataset_opt)
+        lq = dataset.imgs_lq['000']
+        net, ranges = seeded_edvr(EDVR_L_NET, lq[idx[0]][None].cuda(), gen)
+        state = net.state_dict()
+        del net
+        opt, model = engine_model(l_opt, state, tmp, 'edvr_l_seeded')
+        secs, launches, peak = engine_run(
+            lambda name: model.validation(loader, name, None, False))
+        if launches != launch_counts(dcn_fwd=4 * T):
+            raise AssertionError(f'EDVR-L main path launches {launches}, '
+                                 f'expected dcn_fwd 4 x {T} windows')
+        psnr = model.metric_results['000'][:, 0]
+        if not (psnr.shape == (T,) and np.isfinite(psnr).all()):
+            raise AssertionError(f'EDVR-L PSNR table not finite: {psnr}')
+        net = model.net_g
+        lq_card = lq.cuda()
+        net_ms = restore_ms(make_clip_restore_fn(net), lq_card, idx)
+        err, _, cpu_secs = window_vs_cpu(net, EDVR_L_NET, lq[idx[0]][None])
+        out['launches']['edvr_l_main_path'] = launches['dcn_fwd']
+        ph.info.update(frames=T, lq_hw=[h, w], windows=T, win_batch=1,
+                       network=EDVR_L_NET, cuts=L_CUTS + [
+                           'REDS4 100 frames -> a seeded 12-frame clip on '
+                           'disk'],
+                       offset_range_px=ranges, dcn_launches=launches['dcn_fwd'],
+                       seconds_restore=secs, ms_per_window=secs / T * 1e3,
+                       fps=T / secs, peak_mem_bytes=peak,
+                       network_ms_per_window=net_ms,
+                       psnr_mean=float(psnr.mean()),
+                       window_vs_cpu_max_abs_err=err, tol=GOLDEN_TOL,
+                       cpu_window_seconds=cpu_secs, card=smi)
+        del model
+
+    with Phase('edvr_l_pyramid') as ph:
+        m_net = define_network(golden_config)
+        m_net.load_state_dict(golden_state, strict=True)
+        nets = {'edvr_l': net, 'edvr_m': m_net.cuda().eval()}
+        modes = {}
+        for name, model_net in nets.items():
+            fns = {mode: make_clip_restore_fn(model_net, mode=mode)
+                   for mode in ('window', 'pyramid')}
+            outs = {mode: fn(lq_card, idx) for mode, fn in fns.items()}
+            err = (outs['pyramid'] - outs['window']).abs().max().item()
+            del outs
+            if not err <= MODE_TOL:
+                raise AssertionError(f'{name} pyramid vs window mode: max '
+                                     f'abs err {err} > {MODE_TOL}')
+            ms = {'window': [], 'pyramid': []}
+            for mode in ('window', 'pyramid', 'pyramid', 'window'):
+                ms[mode].append(restore_ms(fns[mode], lq_card, idx))
+            native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+            torch.cuda.reset_peak_memory_stats()
+            fns['pyramid'](lq_card, idx)
+            torch.cuda.synchronize()
+            launches = dict(native.LAUNCHES)
+            if launches != launch_counts(dcn_fwd=4 * T):
+                raise AssertionError(f'{name} pyramid launches {launches}')
+            modes[name] = dict(max_abs_err_vs_window=err,
+                               window_ms_per_window=ms['window'],
+                               pyramid_ms_per_window=ms['pyramid'],
+                               pyramid_peak_mem_bytes=(
+                                   torch.cuda.max_memory_allocated()),
+                               pyramid_dcn_launches=launches['dcn_fwd'])
+        out['launches']['edvr_l_pyramid'] = modes['edvr_l'][
+            'pyramid_dcn_launches']
+        ph.info.update(frames=T, lq_hw=[h, w], win_batch=1, tol=MODE_TOL,
+                       order='window, pyramid, pyramid, window',
+                       store_dtype='float32', **modes, card=smi)
+        del nets, m_net
+
+    # the deblur configuration: HR input and pre-deblur, 720x1280 frames
+    lq_s, gt_d = seeded_clip(DEBLUR_T, h, w, gen)
+    blur = F.interpolate(lq_s, scale_factor=4, mode='bilinear',
+                         align_corners=False)
+    idx_d = clip_window_indices(DEBLUR_T, 5, 'reflection_circle')
+    with Phase('edvr_l_deblur') as ph, tempfile.TemporaryDirectory() as tmp:
+        d_net_opt = EDVR_L_DEBLUR_OPT['network_g']
+        d_net, ranges = seeded_edvr(d_net_opt, blur[idx_d[0]][None].cuda(),
+                                    gen)
+        state = d_net.state_dict()
+        del d_net
+        opt, model = engine_model(EDVR_L_DEBLUR_OPT, state, tmp,
+                                  'edvr_l_deblur_seeded')
+        clips = InMemoryClips(opt['datasets']['test_1'], blur, gt_d)
+        secs, launches, peak = engine_run(
+            lambda name: model._clip_validation(clips, name, None, False))
+        if launches != launch_counts(dcn_fwd=4 * DEBLUR_T):
+            raise AssertionError(f'deblur launches {launches}')
+        psnr = model.metric_results['000'][:, 0]
+        if not (psnr.shape == (DEBLUR_T,) and np.isfinite(psnr).all()):
+            raise AssertionError(f'deblur PSNR table not finite: {psnr}')
+        net_ms = restore_ms(make_clip_restore_fn(model.net_g), blur.cuda(),
+                            idx_d)
+        ch, cw = DEBLUR_CPU_CROP
+        err, _, cpu_secs = window_vs_cpu(
+            model.net_g, d_net_opt, blur[idx_d[0]][None, :, :, :ch, :cw])
+        out['launches']['edvr_l_deblur'] = launches['dcn_fwd']
+        del model
+
+        # test_EDVR_L_x4_SRblur_REDS.yml: pre-deblur on LQ input
+        sb_net, sb_ranges = seeded_edvr(EDVR_L_SRBLUR_NET,
+                                        lq[idx[0]][None].cuda(), gen)
+        native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+        with torch.no_grad():
+            full = sb_net(lq_card[idx[0]][None])
+        torch.cuda.synchronize()
+        sb_launches = dict(native.LAUNCHES)
+        if not (sb_launches == launch_counts(dcn_fwd=4)
+                and full.shape == (1, 3, 4 * h, 4 * w)
+                and torch.isfinite(full).all()):
+            raise AssertionError(f'SRblur window: {tuple(full.shape)}, '
+                                 f'launches {sb_launches}')
+        sh, sw = SRBLUR_CPU_CROP
+        sb_err, _, sb_cpu_secs = window_vs_cpu(
+            sb_net, EDVR_L_SRBLUR_NET, lq[idx[0]][None, :, :, :sh, :sw])
+        ph.info.update(
+            frames=DEBLUR_T, hr_hw=list(blur.shape[-2:]), windows=DEBLUR_T,
+            network=d_net_opt, cuts=L_CUTS + [
+                f'REDS4 blurred 100 frames -> {DEBLUR_T} seeded frames, '
+                'the blur a 4x bilinear upsampling of the 4x box-downsampled '
+                'GT',
+                f'CPU check on an HR crop {list(DEBLUR_CPU_CROP)} of the '
+                'first window (the CPU path at 720x1280 takes minutes)'],
+            offset_range_px=ranges, dcn_launches=launches['dcn_fwd'],
+            ms_per_window=secs / DEBLUR_T * 1e3,
+            network_ms_per_window=net_ms, peak_mem_bytes=peak,
+            psnr_mean=float(psnr.mean()), crop_vs_cpu_max_abs_err=err,
+            cpu_crop_seconds=cpu_secs, tol=GOLDEN_TOL,
+            srblur=dict(network=EDVR_L_SRBLUR_NET, lq_hw=[h, w],
+                        offset_range_px=sb_ranges,
+                        dcn_launches=sb_launches['dcn_fwd'],
+                        cpu_crop_lq_hw=list(SRBLUR_CPU_CROP),
+                        crop_vs_cpu_max_abs_err=sb_err,
+                        cpu_crop_seconds=sb_cpu_secs),
+            card=smi)
+        del sb_net, full
+
+    with Phase('edvr_l_vimeo') as ph, tempfile.TemporaryDirectory() as tmp:
+        seqs = [f'{i + 1:05d}/0001' for i in range(VIMEO_SEQS)]
+        root = osp.join(tmp, 'vimeo')
+        meta = write_vimeo(root, gen, seqs, (64, 112))
+        v_opt = json.loads(json.dumps(EDVR_L_VIMEO_OPT))
+        v_opt['datasets']['test_1'].update(dataroot_gt=f'{root}/gt',
+                                           dataroot_lq=f'{root}/lq',
+                                           meta_info_file=meta)
+        dataset_opt = dict(v_opt['datasets']['test_1'], phase='test')
+        dataset = create_dataset(dataset_opt)
+        v_net, ranges = seeded_edvr(v_opt['network_g'],
+                                    dataset[0]['lq'][None].cuda(), gen)
+        state = v_net.state_dict()
+        del v_net
+        opt, model = engine_model(v_opt, state, tmp, 'edvr_l_vimeo_seeded')
+        loader = create_dataloader(dataset, dataset_opt)
+        results = []
+        visuals = model.get_current_visuals
+        model.get_current_visuals = lambda: results.append(visuals()) or \
+            results[-1]
+        model.validation(loader, 'warmup', None, save_img=False)
+        results.clear()
+        native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.validation(loader, opt['name'], None, save_img=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+        if launches != launch_counts(dcn_fwd=4 * VIMEO_SEQS):
+            raise AssertionError(f'Vimeo90K launches {launches}')
+        psnr = model.metric_results['vimeo90k'][:, 0]
+        if not (psnr.shape == (VIMEO_SEQS,) and np.isfinite(psnr).all()):
+            raise AssertionError(f'Vimeo90K PSNR table: {psnr}')
+        # each per-window result is the direct forward of its window
+        direct_errs, psnr_direct = [], []
+        for i, vis in enumerate(results):
+            item = dataset[i]
+            with torch.no_grad():
+                direct = model.net_g(item['lq'][None].cuda()).cpu()
+            direct_errs.append((vis['result'] - direct).abs().max().item())
+            psnr_direct.append(calculate_psnr(tensor2img(direct),
+                                              tensor2img(item['gt']), 0))
+        if not (len(results) == VIMEO_SEQS and max(direct_errs) <= 1e-6
+                and np.allclose(psnr_direct, psnr, rtol=1e-5)):
+            raise AssertionError(f'Vimeo90K per-window vs direct forward: '
+                                 f'{direct_errs}, PSNR {psnr} vs '
+                                 f'{psnr_direct}')
+        out['launches']['edvr_l_vimeo'] = launches['dcn_fwd']
+        ph.info.update(sequences=VIMEO_SEQS, lq_hw=[64, 112],
+                       gt_hw=[256, 448], num_frame=7, protocol='per-window',
+                       network=v_opt['network_g'], cuts=L_CUTS + [
+                           f'Vimeo90K test 7824 septuplets -> {VIMEO_SEQS} '
+                           'seeded synthetic ones'],
+                       offset_range_px=ranges,
+                       dcn_launches=launches['dcn_fwd'],
+                       psnr_per_sequence=[float(p) for p in psnr],
+                       ms_per_sequence=secs / VIMEO_SEQS * 1e3,
+                       vs_direct_forward_max_abs_err=max(direct_errs),
+                       card=smi)
+        del model, results
+
+    with Phase('packed_edvr_l') as ph:
+        # the packed route's kernels at EDVR-L's shapes: PX = 4 pixels per
+        # 128-lane row, blend width 9 x 128, cout 128
+        kernels = {}
+        for level, (lh, lw) in LEVELS.items():
+            dcn_args = dcn_inputs(lh, lw, gen, c=128)
+            gather_args, (*args, c_per) = packed_kernel_inputs(dcn_args)
+            del dcn_args
+            sub = types.SimpleNamespace(info={})
+            out['blend'][level] = blend_check({'': args}, c_per, level, sub)
+            kernels[f'blend_{level}'] = sub.info
+            del args
+            if level == 'L1':
+                sub = types.SimpleNamespace(info={})
+                out['gather']['L1'] = gather_check(*gather_args, 'L1', sub)
+                kernels['gather_L1'] = sub.info
+            del gather_args
+        T3 = PACKED_L_T
+        lq3, idx3 = lq_card[:T3].contiguous(), clip_window_indices(
+            T3, 5, 'reflection_circle')
+        restore = make_clip_restore_fn(net)
+        direct = restore(lq3, idx3)
+        direct_ms = restore_ms(restore, lq3, idx3)
+        with packed_route():
+            restore(lq3, idx3)  # warm-up
+            native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packed = restore(lq3, idx3)
+            torch.cuda.synchronize()
+            packed_ms = (time.perf_counter() - t0) / T3 * 1e3
+            launches = dict(native.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+        expect = launch_counts(row_gather=32 * T3, blend_matmul=32 * T3)
+        if launches != expect:
+            raise AssertionError(f'packed EDVR-L launches {launches}, '
+                                 f'expected {expect}')
+        err = (packed - direct).abs().max().item()
+        if not (torch.isfinite(packed).all() and err <= GOLDEN_TOL):
+            raise AssertionError(f'packed vs direct EDVR-L: max abs err '
+                                 f'{err} > {GOLDEN_TOL}')
+        out['launches']['packed_edvr_l'] = launches
+        ph.info.update(frames=T3, lq_hw=[h, w], windows=T3,
+                       launches=launches, ms_per_window=packed_ms,
+                       direct_ms_per_window=direct_ms, peak_mem_bytes=peak,
+                       vs_direct_route_max_abs_err=err, tol=GOLDEN_TOL,
+                       kernels=kernels, card=smi)
+        del packed, direct, net
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this run '
@@ -679,28 +1293,8 @@ def main():
 
     results = {}
     for level, (h, w) in LEVELS.items():
-        with Phase(f'kernel_{level}') as ph, torch.no_grad():
-            args = dcn_inputs(h, w, gen)
-            geo = (1, 1, 1)  # stride, padding, dilation
-            got = dcn.dcn_fwd_cuda(*args, *geo, 8)
-            want = dcn.modulated_deform_conv_plain(*args, *geo, 1, 8)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            if not err <= DCN_TOL:
-                raise AssertionError(f'dcn_fwd {level}: max abs err {err} '
-                                     f'> {DCN_TOL}')
-            ms = cuda_ms(lambda: dcn.dcn_fwd_cuda(*args, *geo, 8), 20)
-            plain_ms = cuda_ms(
-                lambda: dcn.modulated_deform_conv_plain(*args, *geo, 1, 8),
-                5)
-            bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = dcn_bound(*args)
-            results[level] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  bound_ms_fp32_pipe=fp32_pipe_ms,
-                                  library_ms=gemm_only_ms(args[0], args[3]))
-            ph.info.update(shape=list(args[0].shape), tol=DCN_TOL,
-                           gflop=flops / 1e9, mbytes=nbytes / 1e6,
-                           **results[level])
+        with Phase(f'kernel_{level}') as ph:
+            results[level] = dcn_fwd_check(dcn_inputs(h, w, gen), level, ph)
 
     state, config, x_gold, y_gold = load_golden()
     with Phase('golden') as ph, torch.no_grad():
@@ -934,8 +1528,6 @@ def main():
             grad_tol=STEP_GRAD_TOL, sample_coords=coord_counts, card=smi)
         del model, cpu_model
 
-    from edvr_tpu_torch.ops import dcn_blend, gather
-
     blend_results, gather_in = {}, {}
     for level, (h, w) in LEVELS.items():
         with Phase(f'kernel_blend_{level}') as ph, torch.no_grad():
@@ -947,43 +1539,8 @@ def main():
             if level == 'L1':  # a ragged last block of rows
                 cases['_ragged'] = [a[:1013].contiguous() if a.shape[0] ==
                                     args[0].shape[0] else a for a in args]
-            errs = {}
-            for tag, a in cases.items():
-                got = dcn_blend.blend_matmul_cuda(*a, c_per)
-                want = dcn_blend.blend_matmul_group_plain(*a, c_per)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                errs[f'err{tag}'] = err
-                errs[f'max_abs_out{tag}'] = scale
-                if not err <= BLEND_TOL * scale:
-                    raise AssertionError(
-                        f'blend_matmul {level}{tag}: max abs err {err} > '
-                        f'{BLEND_TOL} x max|out| {scale}')
-            ms = cuda_ms(lambda: dcn_blend.blend_matmul_cuda(*args, c_per),
-                         20)
-            plain_ms = cuda_ms(lambda: dcn_blend.blend_matmul_group_plain(
-                *args, c_per), 5)
-            blended = args[0] * args[1].repeat_interleave(c_per, 1)
-            library_ms = cuda_ms(
-                lambda: torch.addmm(args[3], blended, args[2]), 20)
-            del blended
-            bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = blend_bound(
-                *args)
-            blend_results[level] = dict(
-                max_abs_err=max(v for k, v in errs.items()
-                                if k.startswith('err')),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_ms_fp32_pipe=fp32_pipe_ms,
-                library_ms=library_ms)
-            ph.info.update(
-                g_cat=list(args[0].shape), cs_cat=list(args[1].shape),
-                wexp_g=list(args[2].shape), c_per=c_per,
-                tol_rel_to_max_out=BLEND_TOL, gflop=flops / 1e9,
-                mbytes=nbytes / 1e6, **errs, **blend_results[level],
-                library='torch.addmm(out_prev, blended, wexp_g): the GEMM '
-                        'alone, the blend formed beforehand')
-            del dcn_args, gather_args, args, cases, got, want
+            blend_results[level] = blend_check(cases, c_per, level, ph)
+            del dcn_args, gather_args, args, cases
 
     gather_results = {}
     probe_gen = torch.Generator().manual_seed(SEED + 2)
@@ -995,29 +1552,8 @@ def main():
                               dtype=torch.int32).cuda())
     for tag in [t for t in gather_in if t != 'L1'] + ['L1']:
         table, rows = gather_in[tag]
-        with Phase(f'kernel_gather_{tag}') as ph, torch.no_grad():
-            got = gather.row_gather_cuda(table, rows)
-            want = gather.row_gather_plain(table, rows)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f'row_gather {tag}: not bitwise equal '
-                                     'to index_select')
-            ms = cuda_ms(lambda: gather.row_gather_cuda(table, rows), 20)
-            plain_ms = cuda_ms(lambda: gather.row_gather_plain(table, rows),
-                               20)
-            library_ms = cuda_ms(lambda: torch.index_select(table, 0, rows),
-                                 20)
-            bound_ms, bound_by, nbytes, rows_read = gather_bound(table, rows)
-            gather_results[tag] = dict(
-                max_abs_err=(got - want).abs().max().item(), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
-            ph.info.update(table=list(table.shape), gathers=rows.shape[0],
-                           distinct_rows=rows_read, bitwise_equal=True,
-                           mbytes=nbytes / 1e6,
-                           **gather_results[tag],
-                           library='torch.index_select(table, 0, idx)')
-            del got, want
+        with Phase(f'kernel_gather_{tag}') as ph:
+            gather_results[tag] = gather_check(table, rows, tag, ph)
     del gather_in, table, rows
 
     T2 = PACKED_T
@@ -1521,6 +2057,19 @@ def main():
                        ms={f'{m}_{d}': r['ms']
                            for (m, d), r in ablate_results.items()})
 
+    # the EDVR-L phases in a child process under the test CLI's cuDNN
+    # policy (edvr_tpu_torch.test.INFERENCE_CUDNN_ENV), which is read at a
+    # process's first convolution; this process's phases keep the default
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = osp.join(tmp, 'edvr_l.json')
+        child = subprocess.run([sys.executable, osp.abspath(__file__),
+                                '--edvr-l', out_path], check=False)
+        if child.returncode:
+            raise AssertionError(f'the EDVR-L phases failed (exit '
+                                 f'{child.returncode})')
+        with open(out_path) as f:
+            edvr_l = json.load(f)
+
     l1 = results['L1']
     kernel = {'name': 'dcn_fwd', 'route': 'cuda',
               'source': 'edvr_tpu_torch/csrc/dcn_fwd.cu',
@@ -1611,6 +2160,27 @@ def main():
                                   f'library_ms_{tag}': r['library_ms']})
     kernel['launches_tapshared_train'] = tap_launches['dcn_fwd']
     kernel_bwd['launches_tapshared_train'] = tap_launches['dcn_bwd']
+    # EDVR-L: the forward at c_per 16, cout 128 (L_<level>), and the
+    # launches of each EDVR-L path's run
+    kernel['max_abs_err'] = max(kernel['max_abs_err'], *(
+        r['max_abs_err'] for r in edvr_l['kernel'].values()))
+    for level, r in edvr_l['kernel'].items():
+        kernel.update({f'{key}_L_{level}': r[key] for key in (
+            'ms', 'plain_ms', 'bound_ms', 'bound_ms_fp32_pipe',
+            'library_ms')})
+    for path in ('edvr_l_main_path', 'edvr_l_pyramid', 'edvr_l_deblur',
+                 'edvr_l_vimeo'):
+        kernel[f'launches_{path}'] = edvr_l['launches'][path]
+    packed_l = edvr_l['launches']['packed_edvr_l']
+    for entry, name, results_l in (
+            (kernel_blend, 'blend_matmul', edvr_l['blend']),
+            (kernel_gather, 'row_gather', edvr_l['gather'])):
+        entry['launches_packed_edvr_l'] = packed_l[name]
+        entry['max_abs_err'] = max(entry['max_abs_err'], *(
+            r['max_abs_err'] for r in results_l.values()))
+        for level, r in results_l.items():
+            entry.update({f'{key}_L_{level}': r[key] for key in (
+                'ms', 'plain_ms', 'bound_ms', 'library_ms')})
     # the bf16 entries: their main path is the mixed-precision training
     # step (mp_train); ms at inference L1 (forward) and training L1
     # (backward), as the fp32 entries
@@ -1676,5 +2246,31 @@ def main():
     return 0
 
 
+def edvr_l_main(out_path):
+    """The EDVR-L phases as the test CLI runs inference: its cuDNN policy
+    applied before the first convolution, TF32 off; their readings written
+    to ``out_path`` as JSON. The kernels are the parent's build."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false; this run '
+              'needs a CUDA card', file=sys.stderr)
+        return 1
+    from edvr_tpu_torch.test import use_inference_cudnn_policy
+    use_inference_cudnn_policy()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    state, config, _, _ = load_golden()
+    out = edvr_l_phases(torch.Generator().manual_seed(SEED + 10), smi,
+                        state, config)
+    with open(out_path, 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--edvr-l']:
+        sys.exit(edvr_l_main(sys.argv[2]))
     sys.exit(main())

@@ -8,12 +8,34 @@ state dicts load with ``load_state_dict(strict=True)``.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from edvr_tpu_torch.ops.dcn import modulated_deform_conv
+from edvr_tpu_torch.utils.logger import get_root_logger
+
+
+def _no_align() -> bool:
+    """``EDVR_TPU_PCD_NO_ALIGN=1``: the alignment ablation of the JAX
+    package (``edvr_tpu/archs/arch_util.py:202-209``), offsets held at
+    zero and cut from the graph, so no gradient reaches ``conv_offset``
+    through them; the parameters are unchanged."""
+    return os.environ.get('EDVR_TPU_PCD_NO_ALIGN') == '1'
+
+
+def _monitor_offsets(offset):
+    """``EDVR_TPU_MONITOR_OFFSETS=1``: warn when the mean |offset| exceeds
+    50, a sign of diverging alignment (reference: arch_util.py:249-253;
+    ``edvr_tpu/archs/arch_util.py:211-224``). A host check, made only when
+    the variable is set."""
+    if os.environ.get('EDVR_TPU_MONITOR_OFFSETS') == '1':
+        absmean = offset.detach().abs().mean().item()
+        if absmean > 50:
+            get_root_logger().warning(
+                f'Offset abs mean is {absmean}, larger than 50.')
 
 
 def lrelu(x, negative_slope: float = 0.1):
@@ -82,6 +104,9 @@ class DCNv2Pack(nn.Module):
         o1, o2, mask = torch.chunk(out, 3, dim=1)
         offset = torch.cat((o1, o2), dim=1)
         mask = torch.sigmoid(mask)
+        if _no_align():
+            offset = torch.zeros_like(offset.detach())
+        _monitor_offsets(offset)
         return modulated_deform_conv(x, offset, mask, self.weight, self.bias,
                                      self.stride, self.padding,
                                      self.dilation, self.groups,
@@ -133,6 +158,9 @@ class WarpAlignPack(nn.Module):
         n, cin, h, w = x.shape
         dg = self.deformable_groups
         dy, dx, mask = torch.chunk(self.conv_offset(feat), 3, dim=1)
+        if _no_align():  # the warp held at identity, as DCNv2Pack's
+            dy = torch.zeros_like(dy.detach())
+            dx = torch.zeros_like(dx.detach())
         # channel 2g is group g's dy and 2g+1 its dx (K=1)
         offset = torch.stack([dy, dx], dim=2).reshape(n, 2 * dg, h, w)
         eye = torch.eye(cin, device=x.device, dtype=x.dtype).view(

@@ -8,8 +8,11 @@ alignment runs once per window with the frames folded into the batch
 per-frame loop, so each window makes four DCN calls (L3, L2, L1 and the
 cascade), each over all ``num_frame`` frames.
 
-This slice ports the plain (no predeblur, LR input) EDVR and the
-window-mode whole-clip evaluation.
+The forward is split into stages, as in the JAX package, so that the
+whole-clip evaluation's pyramid mode can compute each frame's pyramid once
+per clip: ``extract_pyramid`` (frames -> L1/L2/L3), ``restore_windows``
+(gather window features from a clip pyramid, align, fuse, reconstruct) and
+``fuse_reconstruct`` (fusion, trunk and upsampling tail).
 """
 
 from __future__ import annotations
@@ -28,6 +31,53 @@ from edvr_tpu_torch.utils.registry import ARCH_REGISTRY
 def _up2(x):
     return F.interpolate(x, scale_factor=2, mode='bilinear',
                          align_corners=False)
+
+
+class PredeblurModule(nn.Module):
+    """Pre-deblur pyramid (reference: edvr_arch.py:217-269;
+    ``edvr_tpu/archs/edvr_arch.py:168-205``). With ``hr_in`` two stride-2
+    convs take the HR input down to the LR grid first.
+
+    ``resblock_l1`` is an ``nn.ModuleList`` and ``resblock_l2_1``,
+    ``resblock_l2_2`` and ``resblock_l3`` are plain attributes, BasicSR's
+    names.
+    """
+
+    def __init__(self, num_in_ch=3, num_feat=64, hr_in=False):
+        super().__init__()
+        nf = num_feat
+        self.hr_in = hr_in
+        self.conv_first = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
+        if hr_in:
+            self.stride_conv_hr1 = nn.Conv2d(nf, nf, 3, 2, 1)
+            self.stride_conv_hr2 = nn.Conv2d(nf, nf, 3, 2, 1)
+        self.stride_conv_l2 = nn.Conv2d(nf, nf, 3, 2, 1)
+        self.stride_conv_l3 = nn.Conv2d(nf, nf, 3, 2, 1)
+        self.resblock_l3 = ResidualBlockNoBN(num_feat=nf)
+        self.resblock_l2_1 = ResidualBlockNoBN(num_feat=nf)
+        self.resblock_l2_2 = ResidualBlockNoBN(num_feat=nf)
+        self.resblock_l1 = nn.ModuleList(
+            [ResidualBlockNoBN(num_feat=nf) for _ in range(5)])
+
+    def forward(self, x):
+        feat_l1 = lrelu(self.conv_first(x))
+        if self.hr_in:
+            feat_l1 = lrelu(self.stride_conv_hr1(feat_l1))
+            feat_l1 = lrelu(self.stride_conv_hr2(feat_l1))
+
+        feat_l2 = lrelu(self.stride_conv_l2(feat_l1))
+        feat_l3 = lrelu(self.stride_conv_l3(feat_l2))
+
+        feat_l3 = _up2(self.resblock_l3(feat_l3))
+        feat_l2 = self.resblock_l2_1(feat_l2) + feat_l3
+        feat_l2 = _up2(self.resblock_l2_2(feat_l2))
+
+        for i in range(2):
+            feat_l1 = self.resblock_l1[i](feat_l1)
+        feat_l1 = feat_l1 + feat_l2
+        for i in range(2, 5):
+            feat_l1 = self.resblock_l1[i](feat_l1)
+        return feat_l1
 
 
 class PCDAlignment(nn.Module):
@@ -163,7 +213,11 @@ class TSAFusion(nn.Module):
 class EDVR(nn.Module):
     """EDVR top-level network (reference: edvr_arch.py:272-420).
 
-    Input (b, t, c, h, w) LQ frames; output (b, c, 4h, 4w).
+    Input (b, t, c, h, w) LQ frames; output (b, c, 4h, 4w). With ``hr_in``
+    the frames are HR (h, w multiples of 16), the pyramid starts at h/4 and
+    the output is (b, c, h, w) with the centre frame itself as the base.
+    ``with_predeblur`` puts the pre-deblur pyramid and a 1x1 conv in place
+    of ``conv_first``.
     """
 
     def __init__(self, num_in_ch=3, num_out_ch=3, num_feat=64, num_frame=5,
@@ -172,15 +226,24 @@ class EDVR(nn.Module):
                  hr_in=False, with_predeblur=False, with_tsa=True,
                  align_variant='dcn'):
         super().__init__()
-        if hr_in or with_predeblur:
-            raise NotImplementedError(
-                'EDVR with hr_in or with_predeblur is not ported yet')
+        if hr_in and not with_predeblur:
+            # the stride convs that take an HR input to the LR grid are
+            # the pre-deblur module's; without it the reference's and the
+            # JAX package's forwards fail on the shapes
+            raise ValueError('hr_in needs with_predeblur')
         nf = num_feat
         self.center_frame_idx = (num_frame // 2 if center_frame_idx is None
                                  else center_frame_idx)
+        self.hr_in = hr_in
+        self.with_predeblur = with_predeblur
         self.with_tsa = with_tsa
 
-        self.conv_first = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
+        if with_predeblur:
+            self.predeblur = PredeblurModule(num_in_ch=num_in_ch,
+                                             num_feat=nf, hr_in=hr_in)
+            self.conv_1x1 = nn.Conv2d(nf, nf, 1, 1)
+        else:
+            self.conv_first = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
         self.feature_extraction = make_layer(
             ResidualBlockNoBN, num_extract_block, num_feat=nf)
         self.conv_l2_1 = nn.Conv2d(nf, nf, 3, 2, 1)
@@ -203,42 +266,79 @@ class EDVR(nn.Module):
         self.conv_hr = nn.Conv2d(64, 64, 3, 1, 1)
         self.conv_last = nn.Conv2d(64, num_out_ch, 3, 1, 1)
 
-    def forward(self, x):
-        b, t, c, h, w = x.shape
-        if h % 4 or w % 4:
-            raise ValueError(
-                f'The height and width must be multiples of 4, got {h}x{w}')
-        x_center = x[:, self.center_frame_idx].contiguous()
-
-        # per-frame pyramid with frames folded into the batch
-        feat_l1 = lrelu(self.conv_first(x.view(-1, c, h, w)))
+    def extract_pyramid(self, xf):
+        """Per-frame L1/L2/L3 features (reference: edvr_arch.py:376-388) of
+        (n, c, h, w) frames: (n, nf, h, w), (n, nf, h/2, w/2), (n, nf, h/4,
+        w/4); with ``hr_in`` L1 is h/4 x w/4."""
+        if self.with_predeblur:
+            feat_l1 = self.conv_1x1(self.predeblur(xf))
+        else:
+            feat_l1 = lrelu(self.conv_first(xf))
         feat_l1 = self.feature_extraction(feat_l1)
         feat_l2 = lrelu(self.conv_l2_2(lrelu(self.conv_l2_1(feat_l1))))
         feat_l3 = lrelu(self.conv_l3_2(lrelu(self.conv_l3_1(feat_l2))))
+        return feat_l1, feat_l2, feat_l3
 
-        feats = [f.view(b, t, *f.shape[1:]) for f in
-                 (feat_l1, feat_l2, feat_l3)]
-        # one PCD call over all frames, the reference pyramid tiled
-        # across them (edvr_tpu/archs/edvr_arch.py:379-391)
-        nbr = [f.reshape(b * t, *f.shape[2:]) for f in feats]
-        ref = [f[:, self.center_frame_idx:self.center_frame_idx + 1]
-               .expand(-1, t, -1, -1, -1).reshape(b * t, *f.shape[2:])
-               for f in feats]
-        aligned = self.pcd_align(nbr, ref).view(b, t, -1, h, w)
-
+    def fuse_reconstruct(self, aligned, x_center):
+        """Fusion (TSA or 1x1), the reconstruction trunk and the upsampling
+        tail plus the base (reference: edvr_arch.py:405-419). ``aligned``
+        is (b, t, nf, h, w); ``x_center`` the (b, c, h, w) LQ centre frame,
+        the HR one with ``hr_in``."""
+        b, t, nf, h, w = aligned.shape
         if self.with_tsa:
             feat = self.fusion(aligned)
         else:
-            feat = self.fusion(aligned.view(b, -1, h, w))
+            feat = self.fusion(aligned.reshape(b, t * nf, h, w))
 
         out = self.reconstruction(feat)
         out = lrelu(self.pixel_shuffle(self.upconv1(out)))
         out = lrelu(self.pixel_shuffle(self.upconv2(out)))
         out = lrelu(self.conv_hr(out))
         out = self.conv_last(out)
-        base = F.interpolate(x_center, scale_factor=4, mode='bilinear',
-                             align_corners=False)
+        if self.hr_in:
+            base = x_center
+        else:
+            base = F.interpolate(x_center, scale_factor=4, mode='bilinear',
+                                 align_corners=False)
         return out + base
+
+    def _align(self, nbr, ref, b, t):
+        """One PCD call over all ``b * t`` frames, the reference pyramid
+        tiled across them (``edvr_tpu/archs/edvr_arch.py:379-391``)."""
+        aligned = self.pcd_align(nbr, ref)
+        return aligned.view(b, t, *aligned.shape[1:])
+
+    def restore_windows(self, pyr, clip, idx):
+        """Restore (B, c, 4h, 4w) frames from a clip pyramid (pyramid-mode
+        clip evaluation): ``pyr`` is the clip's (T, nf, ...) L1/L2/L3,
+        ``clip`` its (T, c, h, w) frames, ``idx`` a (B, t) long tensor of
+        window indices whose column ``center_frame_idx`` is the output
+        frame."""
+        B, t = idx.shape
+        dtype = clip.dtype
+        center = idx[:, self.center_frame_idx]
+        nbr = [f.index_select(0, idx.reshape(-1)).to(dtype) for f in pyr]
+        ref = [f.index_select(0, center.repeat_interleave(t)).to(dtype)
+               for f in pyr]
+        return self.fuse_reconstruct(self._align(nbr, ref, B, t),
+                                     clip.index_select(0, center))
+
+    def forward(self, x):
+        b, t, c, h, w = x.shape
+        mult = 16 if self.hr_in else 4
+        if h % mult or w % mult:
+            raise ValueError(f'The height and width must be multiples of '
+                             f'{mult}, got {h}x{w}')
+        x_center = x[:, self.center_frame_idx].contiguous()
+
+        # per-frame pyramid with frames folded into the batch
+        feats = [f.view(b, t, *f.shape[1:]) for f in
+                 self.extract_pyramid(x.view(-1, c, h, w))]
+        nbr = [f.reshape(b * t, *f.shape[2:]) for f in feats]
+        ref = [f[:, self.center_frame_idx:self.center_frame_idx + 1]
+               .expand(-1, t, -1, -1, -1).reshape(b * t, *f.shape[2:])
+               for f in feats]
+        return self.fuse_reconstruct(self._align(nbr, ref, b, t), x_center)
 
 
 def clip_window_indices(num_frames_clip: int, num_frame: int,
@@ -251,30 +351,62 @@ def clip_window_indices(num_frames_clip: int, num_frame: int,
     ], dtype=np.int64)
 
 
-def make_clip_restore_fn(model: EDVR, win_batch: int = 1):
-    """Whole-clip EDVR evaluation in window mode.
+def make_clip_restore_fn(model: EDVR, win_batch: int = 1, store_dtype=None,
+                         mode: str = 'window'):
+    """Whole-clip EDVR evaluation
+    (``edvr_tpu/archs/edvr_arch.py:409-489``).
 
     Returns ``fn(clip, idx) -> (T, c, 4h, 4w)`` where ``clip`` is a
     (T, c, h, w) tensor on the model's device and ``idx`` the (T, t) table
-    from :func:`clip_window_indices`. Windows of raw frames are restored
-    ``win_batch`` at a time through the standard forward, the loop that the
-    JAX package runs as a ``lax.scan``
-    (``edvr_tpu/archs/edvr_arch.py:409-489``). Pyramid mode is not ported
-    yet.
+    from :func:`clip_window_indices`. Windows are restored ``win_batch`` at
+    a time, the loop that the JAX package runs as a ``lax.scan``; the last
+    step is padded with copies of the last window, whose outputs are
+    dropped.
+
+    ``mode``:
+
+    * ``'window'``: each step gathers windows of raw frames and runs the
+      standard forward, re-extracting each frame's pyramid per window as
+      the reference protocol does;
+    * ``'pyramid'``: the clip's L1/L2/L3 pyramid is computed once and held
+      in ``store_dtype``; each step gathers windows of features
+      (:meth:`EDVR.restore_windows`). The pyramid is extracted
+      ``win_batch * t`` frames at a time (each frame's is its own), so the
+      extraction's intermediates stay those of one step however long the
+      clip.
+
+    ``store_dtype`` defaults to float32, the JAX package's choice when the
+    matmul precision is pinned to float32, as it is in the port (TF32 off).
     """
     if win_batch < 1:
         raise ValueError(f'win_batch must be >= 1, got {win_batch}')
+    if mode not in ('window', 'pyramid'):
+        raise ValueError(f'unknown clip mode {mode!r}')
+    store_dtype = store_dtype or torch.float32
 
     @torch.no_grad()
     def fn(clip, idx):
         idx = torch.as_tensor(idx, dtype=torch.long, device=clip.device)
-        t = idx.shape[1]
+        T, t = idx.shape
+        pad = -T % win_batch
+        if pad:
+            idx = torch.cat([idx, idx[-1:].expand(pad, t)])
+        if mode == 'pyramid':
+            step = win_batch * t
+            chunks = [model.extract_pyramid(clip[s:s + step])
+                      for s in range(0, clip.shape[0], step)]
+            pyr = [torch.cat(level).to(store_dtype)
+                   for level in zip(*chunks)]
+            del chunks
         outs = []
         for s in range(0, idx.shape[0], win_batch):
             idx_b = idx[s:s + win_batch]
-            wins = clip[idx_b.reshape(-1)].view(idx_b.shape[0], t,
-                                                *clip.shape[1:])
-            outs.append(model(wins))
-        return torch.cat(outs)
+            if mode == 'pyramid':
+                outs.append(model.restore_windows(pyr, clip, idx_b))
+            else:
+                wins = clip[idx_b.reshape(-1)].view(win_batch, t,
+                                                    *clip.shape[1:])
+                outs.append(model(wins))
+        return torch.cat(outs)[:T]
 
     return fn

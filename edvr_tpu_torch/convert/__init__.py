@@ -23,6 +23,9 @@ _MODULE_DICTS = ('offset_conv1', 'offset_conv2', 'offset_conv3', 'dcn_pack',
                  'feat_conv')
 _MODULE_DICT_RE = re.compile(
     r'^(' + '|'.join(_MODULE_DICTS) + r')_(l\d+)$')
+# flax scope ``resblock_l1_<i>`` is PredeblurModule's ``nn.ModuleList``
+# entry ``resblock_l1.<i>``; its ``resblock_l2_<j>`` are plain attributes
+_MODULE_LIST_RE = re.compile(r'^(resblock_l1)_(\d+)$')
 
 # header of an edvr_tpu native checkpoint (edvr_tpu/models/base_model.py);
 # only files that carry it are unpickled
@@ -38,7 +41,7 @@ def _torch_key(path) -> str:
         if m:  # make_layer's Sequential children
             tokens.append(m.group(1))
             continue
-        m = _MODULE_DICT_RE.match(scope)
+        m = _MODULE_DICT_RE.match(scope) or _MODULE_LIST_RE.match(scope)
         tokens.extend(m.groups() if m else [scope])
     tokens.append('weight' if path[-1] == 'kernel' else path[-1])
     return '.'.join(tokens)

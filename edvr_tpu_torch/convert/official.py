@@ -1,0 +1,202 @@
+"""Official third-party checkpoints into BasicSR naming, the port's copy of
+``edvr_tpu/convert/official.py:20-166`` (reference:
+scripts/model_conversion/convert_models.py) for the architectures the port
+has: EDVR. Other families' remaps come with their architectures.
+
+    python -m edvr_tpu_torch.convert.official --source EDVR \\
+        --pth EDVR_official.pth --out net_g.pth
+
+writes a BasicSR ``.pth`` (the state dict under ``params``) that
+``edvr_tpu_torch.convert.load_state_dict_file`` and the CLIs'
+``pretrain_network_g`` read, and reports the official keys no rule
+renames.
+
+Each remap returns (renamed_dict, unmatched_keys).
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import sys
+
+
+def _apply(state, rules, passthrough=()):
+    """Rename keys by the first matching (regex, template) rule.
+
+    Template may be a string with backrefs or a callable(match)->str.
+    Keys matching a passthrough prefix are kept verbatim. Returns
+    (renamed, unmatched).
+    """
+    out, unmatched = {}, []
+    for k, v in state.items():
+        if any(k.startswith(p) for p in passthrough):
+            out[k] = v
+            continue
+        for pat, repl in rules:
+            m = re.match(pat, k)
+            if m:
+                out[repl(m) if callable(repl) else m.expand(repl)] = v
+                break
+        else:
+            unmatched.append(k)
+    return out, unmatched
+
+
+def edvr_to_official(k):
+    """BasicSR EDVR key -> original-EDVR-repo key, the inverse of
+    :func:`remap_edvr` (reference convert_models.py:16-106 elif chain,
+    forward direction).
+
+    Kept as an independent elif chain (no shared rule table with
+    remap_edvr), so a round trip cross-checks two separate transcriptions
+    of the reference mapping.
+    """
+    if 'predeblur.stride_conv_hr1' in k:
+        return k.replace('predeblur.stride_conv_hr1',
+                         'pre_deblur.conv_first_2')
+    if 'predeblur.stride_conv_hr2' in k:
+        return k.replace('predeblur.stride_conv_hr2',
+                         'pre_deblur.conv_first_3')
+    if 'predeblur.conv_first' in k:
+        return k.replace('predeblur.conv_first', 'pre_deblur.conv_first_1')
+    if 'predeblur.stride_conv_l2' in k:
+        return k.replace('predeblur.stride_conv_l2',
+                         'pre_deblur.deblur_L2_conv')
+    if 'predeblur.stride_conv_l3' in k:
+        return k.replace('predeblur.stride_conv_l3',
+                         'pre_deblur.deblur_L3_conv')
+    if 'predeblur.resblock_l3' in k:
+        return k.replace('predeblur.resblock_l3', 'pre_deblur.RB_L3_1')
+    if 'predeblur.resblock_l2' in k:
+        return k.replace('predeblur.resblock_l', 'pre_deblur.RB_L')
+    if 'predeblur.resblock_l1' in k:
+        a, b, c, d, e = k.split('.')
+        return f'pre_deblur.RB_L1_{int(c) + 1}.{d}.{e}'
+    if 'conv_l2' in k:
+        return k.replace('conv_l2_', 'fea_L2_conv')
+    if 'conv_l3' in k:
+        return k.replace('conv_l3_', 'fea_L3_conv')
+    if 'pcd_align.dcn_pack' in k:
+        idx = k.split('.l')[1].split('.')[0]
+        name = k.split('.l')[1].split('.')[1]
+        if 'conv_offset' in k:
+            name = name.replace('conv_offset', 'conv_offset_mask')
+            wb = k.split('.l')[1].split('.')[2]
+            return f'pcd_align.L{idx}_dcnpack.{name}.{wb}'
+        return f'pcd_align.L{idx}_dcnpack.{name}'
+    if 'pcd_align.offset_conv' in k:
+        a, b, c, d = k.split('.')
+        idx = b.split('conv')[1]
+        level = c.split('l')[1]
+        return f'pcd_align.L{level}_offset_conv{idx}.{d}'
+    if 'pcd_align.feat_conv' in k:
+        a, b, c, d = k.split('.')
+        level = c.split('l')[1]
+        return f'pcd_align.L{level}_fea_conv.{d}'
+    if 'pcd_align.cas_dcnpack' in k:
+        return k.replace('conv_offset', 'conv_offset_mask')
+    if ('conv_first' in k or 'feature_extraction' in k
+            or 'pcd_align.cas_offset' in k or 'upconv' in k
+            or 'conv_last' in k or 'conv_1x1' in k):
+        return k
+    if 'temporal_attn1' in k:
+        return k.replace('fusion.temporal_attn1', 'tsa_fusion.tAtt_2')
+    if 'temporal_attn2' in k:
+        return k.replace('fusion.temporal_attn2', 'tsa_fusion.tAtt_1')
+    if 'fusion.feat_fusion' in k:
+        return k.replace('fusion.feat_fusion', 'tsa_fusion.fea_fusion')
+    if 'fusion.spatial_attn_add' in k:
+        return k.replace('fusion.spatial_attn_add', 'tsa_fusion.sAtt_add_')
+    if 'fusion.spatial_attn_l' in k:
+        return k.replace('fusion.spatial_attn_l', 'tsa_fusion.sAtt_L')
+    if 'fusion.spatial_attn' in k:
+        return k.replace('fusion.spatial_attn', 'tsa_fusion.sAtt_')
+    if 'reconstruction' in k:
+        return k.replace('reconstruction', 'recon_trunk')
+    if 'conv_hr' in k:
+        return k.replace('conv_hr', 'HRconv')
+    if 'fusion' in k:
+        return k.replace('fusion', 'tsa_fusion')
+    return None
+
+
+def remap_edvr(state):
+    """Original-EDVR-repo naming -> BasicSR EDVR naming
+    (convert_models.py:4-109, inverted)."""
+    rules = [
+        # predeblur (reference 'pre_deblur' module)
+        (r'pre_deblur\.conv_first_1\.(.*)', r'predeblur.conv_first.\1'),
+        (r'pre_deblur\.conv_first_2\.(.*)', r'predeblur.stride_conv_hr1.\1'),
+        (r'pre_deblur\.conv_first_3\.(.*)', r'predeblur.stride_conv_hr2.\1'),
+        (r'pre_deblur\.deblur_L2_conv\.(.*)', r'predeblur.stride_conv_l2.\1'),
+        (r'pre_deblur\.deblur_L3_conv\.(.*)', r'predeblur.stride_conv_l3.\1'),
+        (r'pre_deblur\.RB_L3_1\.(.*)', r'predeblur.resblock_l3.\1'),
+        (r'pre_deblur\.RB_L2_(\d+)\.(.*)', r'predeblur.resblock_l2_\1.\2'),
+        (r'pre_deblur\.RB_L1_(\d+)\.(.*)',
+         lambda m: f'predeblur.resblock_l1.{int(m.group(1)) - 1}.'
+                   f'{m.group(2)}'),
+        # pyramid feature convs
+        (r'fea_L2_conv(\d+)\.(.*)', r'conv_l2_\1.\2'),
+        (r'fea_L3_conv(\d+)\.(.*)', r'conv_l3_\1.\2'),
+        # PCD alignment
+        (r'pcd_align\.L(\d)_dcnpack\.conv_offset_mask\.(.*)',
+         r'pcd_align.dcn_pack.l\1.conv_offset.\2'),
+        (r'pcd_align\.L(\d)_dcnpack\.(.*)', r'pcd_align.dcn_pack.l\1.\2'),
+        (r'pcd_align\.L(\d)_offset_conv(\d)\.(.*)',
+         r'pcd_align.offset_conv\2.l\1.\3'),
+        (r'pcd_align\.L(\d)_fea_conv\.(.*)', r'pcd_align.feat_conv.l\1.\2'),
+        (r'pcd_align\.cas_dcnpack\.conv_offset_mask\.(.*)',
+         r'pcd_align.cas_dcnpack.conv_offset.\1'),
+        (r'pcd_align\.cas_dcnpack\.(.*)', r'pcd_align.cas_dcnpack.\1'),
+        # TSA fusion (note tAtt_2 <-> attn1 / tAtt_1 <-> attn2 swap)
+        (r'tsa_fusion\.tAtt_2\.(.*)', r'fusion.temporal_attn1.\1'),
+        (r'tsa_fusion\.tAtt_1\.(.*)', r'fusion.temporal_attn2.\1'),
+        (r'tsa_fusion\.fea_fusion\.(.*)', r'fusion.feat_fusion.\1'),
+        (r'tsa_fusion\.sAtt_add_(\d)\.(.*)', r'fusion.spatial_attn_add\1.\2'),
+        (r'tsa_fusion\.sAtt_L(\d)\.(.*)', r'fusion.spatial_attn_l\1.\2'),
+        (r'tsa_fusion\.sAtt_(\d)\.(.*)', r'fusion.spatial_attn\1.\2'),
+        # woTSA models name the 1x1 fusion conv 'tsa_fusion' upstream
+        (r'tsa_fusion\.(.*)', r'fusion.\1'),
+        (r'recon_trunk\.(.*)', r'reconstruction.\1'),
+        (r'HRconv\.(.*)', r'conv_hr.\1'),
+    ]
+    passthrough = ('conv_first.', 'feature_extraction.',
+                   'pcd_align.cas_offset', 'upconv', 'conv_last.',
+                   'conv_1x1.')
+    return _apply(state, rules, passthrough)
+
+
+REMAPPERS = {'EDVR': remap_edvr}
+
+
+def main(args=None):
+    import torch
+
+    from edvr_tpu_torch.convert import load_state_dict_file
+
+    parser = argparse.ArgumentParser(
+        description='Rename an official checkpoint into a BasicSR .pth.')
+    parser.add_argument('--source', required=True, choices=sorted(REMAPPERS),
+                        help='official checkpoint family')
+    parser.add_argument('--pth', required=True,
+                        help='the official .pth (a state dict, or one '
+                        'under --param_key)')
+    parser.add_argument('--out', required=True,
+                        help='the BasicSR .pth to write')
+    parser.add_argument('--param_key', default=None,
+                        help='sub-dict key in the official file')
+    args = parser.parse_args(args)
+
+    state = load_state_dict_file(args.pth, args.param_key)
+    renamed, unmatched = REMAPPERS[args.source](state)
+    if unmatched:
+        print(f'WARNING: {len(unmatched)} official keys without a rename '
+              f'rule: {unmatched}', file=sys.stderr)
+    torch.save({'params': renamed}, args.out)
+    print(f'wrote {len(renamed)} tensors to {args.out}')
+    return renamed, unmatched
+
+
+if __name__ == '__main__':
+    main()

@@ -1,8 +1,9 @@
-"""Video test dataset (reference: basicsr/data/video_test_dataset.py:11-148),
-the counterpart of ``edvr_tpu/data/video_test_dataset.py::VideoTestDataset``:
+"""Video test datasets (reference: basicsr/data/video_test_dataset.py), the
+counterparts of ``edvr_tpu/data/video_test_dataset.py``: ``VideoTestDataset``,
 per-frame items with folder/idx/border bookkeeping for Vid4, REDS4 and
-REDSofficial. With ``cache_data`` every clip is held in memory as a
-(t, c, h, w) tensor in ``imgs_lq`` / ``imgs_gt``, keyed by folder.
+REDSofficial (with ``cache_data`` every clip is held in memory as a
+(t, c, h, w) tensor in ``imgs_lq`` / ``imgs_gt``, keyed by folder); and
+``VideoTestVimeo90KDataset``, Vimeo90K's centre-frame testing.
 """
 
 from __future__ import annotations
@@ -93,6 +94,55 @@ class VideoTestDataset(torch.utils.data.Dataset):
                 'idx': self.data_info['idx'][index],
                 'border': self.data_info['border'][index],
                 'lq_path': self.data_info['lq_path'][index]}
+
+    def __len__(self):
+        return len(self.data_info['gt_path'])
+
+
+@DATASET_REGISTRY.register()
+class VideoTestVimeo90KDataset(torch.utils.data.Dataset):
+    """Centre-frame Vimeo90K testing (reference:
+    video_test_dataset.py:150-228; ``edvr_tpu/data/video_test_dataset.py:109-155``):
+    one item per septuplet of the meta-info file, its ``num_frame`` middle
+    LQ frames and ``im4.png`` as GT, all in the folder ``vimeo90k`` with
+    border 0."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.cache_data = opt['cache_data']
+        if self.cache_data:
+            raise NotImplementedError(
+                'cache_data in Vimeo90K-Test dataset is not implemented.')
+        self.gt_root, self.lq_root = opt['dataroot_gt'], opt['dataroot_lq']
+        self.data_info = {'lq_path': [], 'gt_path': [], 'folder': [],
+                          'idx': [], 'border': []}
+        neighbor_list = [i + (9 - opt['num_frame']) // 2
+                         for i in range(opt['num_frame'])]
+        if opt['io_backend']['type'] == 'lmdb':
+            raise ValueError('No need to use lmdb during validation/test.')
+
+        get_root_logger().info(
+            f'Generate data info for VideoTestDataset - {opt["name"]}')
+        with open(opt['meta_info_file'], 'r') as fin:
+            subfolders = [line.split(' ')[0] for line in fin]
+        for idx, subfolder in enumerate(subfolders):
+            self.data_info['gt_path'].append(
+                osp.join(self.gt_root, subfolder, 'im4.png'))
+            self.data_info['lq_path'].append([
+                osp.join(self.lq_root, subfolder, f'im{i}.png')
+                for i in neighbor_list])
+            self.data_info['folder'].append('vimeo90k')
+            self.data_info['idx'].append(f'{idx}/{len(subfolders)}')
+            self.data_info['border'].append(0)
+
+    def __getitem__(self, index):
+        lq_path = self.data_info['lq_path'][index]
+        return {'lq': read_img_seq(lq_path),
+                'gt': read_img_seq([self.data_info['gt_path'][index]])[0],
+                'folder': self.data_info['folder'][index],
+                'idx': self.data_info['idx'][index],
+                'border': self.data_info['border'][index],
+                'lq_path': lq_path[self.opt['num_frame'] // 2]}
 
     def __len__(self):
         return len(self.data_info['gt_path'])

@@ -131,6 +131,24 @@ class SRModel(BaseModel):
         self._mask_gradients(current_iter)
         self.optimizer_g.step()
 
+    def test(self):
+        """``net_g`` on ``lq`` in eval mode without autograd (reference:
+        sr_model.py:112-117; ``edvr_tpu/models/sr_model.py:222-224``)."""
+        self.net_g.eval()
+        with torch.no_grad():
+            self.output = self.net_g(self.lq)
+        if self.is_train:
+            self.net_g.train()
+
+    def get_current_visuals(self):
+        """lq, result and (when fed) gt, on the CPU (reference:
+        sr_model.py:186-192)."""
+        out = {'lq': self.lq.detach().cpu(),
+               'result': self.output.detach().cpu()}
+        if hasattr(self, 'gt'):
+            out['gt'] = self.gt.detach().cpu()
+        return out
+
     def save(self, epoch, current_iter):
         self.save_network(self.net_g, 'net_g', current_iter)
         self.save_training_state(epoch, current_iter)

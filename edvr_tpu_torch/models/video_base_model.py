@@ -1,8 +1,10 @@
 """Video SR engine (reference: basicsr/models/video_base_model.py), the
 counterpart of ``edvr_tpu/models/video_base_model.py``: per-folder x
-per-frame metric tables filled by whole-clip EDVR evaluation, from the
-test CLI (``val.clip_mode``) or from the training loop at ``val_freq``.
-Training itself is the SR engine's."""
+per-frame metric tables, from the test CLI or from the training loop at
+``val_freq``, filled by the reference's per-window protocol (one dataset
+item, one forward) or, with ``val.clip_mode``, by whole-clip EDVR
+evaluation. One process: the JAX package's rank striding runs as rank 0 of
+1. Training itself is the SR engine's."""
 
 from __future__ import annotations
 
@@ -39,8 +41,15 @@ class VideoBaseModel(SRModel):
 
     def _save_result_img(self, result_img, dataset_name, folder, lq_path):
         """Write one restored frame under the reference's visualization
-        layout and naming (reference: video_base_model.py:77-94)."""
-        img_name = osp.splitext(osp.basename(lq_path))[0]
+        layout and naming (reference: video_base_model.py:77-94;
+        ``edvr_tpu/models/video_base_model.py:50-70``): Vimeo90K frames
+        are named ``<sequence>_<clip>_<frame>`` after their LQ path."""
+        if 'vimeo' in dataset_name.lower():
+            split_result = lq_path.split('/')
+            img_name = (f'{split_result[-3]}_{split_result[-2]}_'
+                        f'{split_result[-1].split(".")[0]}')
+        else:
+            img_name = osp.splitext(osp.basename(lq_path))[0]
         suffix = self.opt['val'].get('suffix') or self.opt['name']
         imwrite(result_img, osp.join(self.opt['path']['visualization'],
                                      dataset_name, folder,
@@ -54,23 +63,62 @@ class VideoBaseModel(SRModel):
 
     def validation(self, dataloader, current_iter, tb_logger,
                    save_img=False):
-        """Score every frame of the dataset's clips. Whole-clip evaluation
-        is the only protocol ported: under the test CLI it needs
-        ``val.clip_mode``; during training (``val_freq``) it is taken for
-        the per-window protocol, whose window outputs it reproduces
-        (``edvr_tpu/models/video_base_model.py::_clip_validation``)."""
-        dataset = dataloader.dataset
-        clip_mode = (self.opt.get('val') or {}).get('clip_mode')
-        if not ((clip_mode or self.is_train)
-                and isinstance(dataset, VideoTestDataset)
-                and isinstance(self.net_g, EDVR)):
-            raise NotImplementedError(
-                'only whole-clip validation (val.clip_mode with a '
-                'VideoTestDataset and an EDVR network) is ported yet')
+        """Score every frame of the dataset (one process: the JAX
+        package's ``nondist_validation`` delegates to ``dist_validation``,
+        ``edvr_tpu/models/video_base_model.py:216-220``)."""
+        self.dist_validation(dataloader, current_iter, tb_logger, save_img)
+
+    def nondist_validation(self, dataloader, current_iter, tb_logger,
+                           save_img):
+        self.dist_validation(dataloader, current_iter, tb_logger, save_img)
+
+    def dist_validation(self, dataloader, current_iter, tb_logger,
+                        save_img):
+        """The reference's per-window protocol as rank 0 of 1
+        (``edvr_tpu/models/video_base_model.py:90-136``): each dataset item
+        is one window through :meth:`test`, its output scored against its
+        GT frame. ``val.clip_mode`` with a VideoTestDataset and an EDVR
+        network takes whole-clip evaluation instead, with the same outputs;
+        with any other dataset or network it warns and falls back to the
+        per-window protocol, as the JAX package does."""
         if save_img and self.is_train:
             raise NotImplementedError(
                 'saving image is not supported during training.')
-        self._clip_validation(dataset, current_iter, tb_logger, save_img)
+        dataset = dataloader.dataset
+        if (self.opt.get('val') or {}).get('clip_mode'):
+            if isinstance(dataset, VideoTestDataset) and \
+                    isinstance(self.net_g, EDVR):
+                return self._clip_validation(dataset, current_iter,
+                                             tb_logger, save_img)
+            get_root_logger().warning(
+                'val.clip_mode needs a VideoTestDataset (whole folders) '
+                'and an EDVR network; falling back to the per-window '
+                'protocol.')
+        dataset_name = dataset.opt['name']
+        with_metrics = self._init_metric_tables(dataset)
+
+        for idx in range(len(dataset)):
+            val_data = dataset[idx]
+            folder = val_data['folder']
+            frame_idx = int(val_data['idx'].split('/')[0])
+            self.feed_data({k: val_data[k][None] for k in ('lq', 'gt')
+                            if k in val_data})
+            self.test()
+            visuals = self.get_current_visuals()
+            result_img = tensor2img(visuals['result'])
+            if 'gt' in visuals:
+                gt_img = tensor2img(visuals['gt'])
+                del self.gt
+            del self.lq, self.output
+
+            if save_img:
+                self._save_result_img(result_img, dataset_name, folder,
+                                      val_data['lq_path'])
+            if with_metrics:
+                self._score_frame(result_img, gt_img, folder, frame_idx)
+
+        if with_metrics:
+            self._log_validation_metric_values(current_iter, dataset_name)
 
     def _clip_validation(self, dataset, current_iter, tb_logger, save_img):
         """Whole-clip EDVR evaluation in window mode (``val.clip_mode``),

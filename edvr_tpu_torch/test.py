@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import logging
+import os
 from os import path as osp
 
 from edvr_tpu_torch.data import create_dataloader, create_dataset
@@ -12,8 +13,29 @@ from edvr_tpu_torch.train import parse_options
 from edvr_tpu_torch.utils import (dict2str, get_env_info, get_root_logger,
                                   get_time_str, make_exp_dirs)
 
+# cuDNN's convolution algorithm choice for this inference process. With TF32
+# off, PyTorch's default (cuDNN v8 API) heuristics pick FFT convolutions with
+# ~18 GB workspaces for some of EDVR-L's 128-channel convolutions at the
+# pyramid's L2/L3 sizes (222 ms for one 256->128 3x3 convolution of 5 frames
+# at 90x160, against 1.25 ms for its two 128-channel halves), which makes an
+# EDVR-L window ~8x slower; the v7 API's heuristics with the workspace capped
+# at 1 GiB pick implicit GEMMs (scripts/dev/time_edvr_convs.py, PERF.md).
+# Both variables are read at the process's first convolution, so they are set
+# before it; values already in the environment are kept. Training keeps the
+# default: the same policy slows the bf16 and tap_shared steps.
+INFERENCE_CUDNN_ENV = {'TORCH_CUDNN_V8_API_DISABLED': '1',
+                       'CUDNN_CONV_WSCAP_DBG': '1024'}
+
+
+def use_inference_cudnn_policy():
+    """Apply :data:`INFERENCE_CUDNN_ENV` to this process (before its first
+    convolution)."""
+    for key, value in INFERENCE_CUDNN_ENV.items():
+        os.environ.setdefault(key, value)
+
 
 def main(args=None):
+    use_inference_cudnn_policy()
     opt = parse_options(is_train=False, args=args)
 
     make_exp_dirs(opt)

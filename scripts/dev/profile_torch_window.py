@@ -1,10 +1,13 @@
-"""Where the time of one EDVR-M x4 window goes in the PyTorch port, on a
+"""Where the time of one EDVR x4 window goes in the PyTorch port, on a
 CUDA card.
 
-    python3 scripts/dev/profile_torch_window.py [--windows 3] [--trace out.json]
+    python3 scripts/dev/profile_torch_window.py [--variant M|L] [--windows 3]
+        [--trace out.json]
 
 Builds EDVR-M (64 features, 5 frames, dg=8, 5+10 blocks, TSA) with the
-golden reference weights (tests/data/golden/arch_edvr_m_full.npz), fp32
+golden reference weights (tests/data/golden/arch_edvr_m_full.npz), or with
+``--variant L`` EDVR-L (128 features, 5+40 blocks) with seeded weights
+(torch seed ``--seed``, each ``conv_offset`` drawn from N(0, 0.02)), fp32
 with TF32 off, and restores seeded 5-frame 180x320 windows. Prints JSON
 lines:
 
@@ -63,6 +66,7 @@ def window_ms(net, wins, iters):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument('--variant', choices=('M', 'L'), default='M')
     ap.add_argument('--windows', type=int, default=3)
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--trace', default=None,
@@ -79,20 +83,35 @@ def main():
 
     data = np.load(osp.join(ROOT, 'tests', 'data', 'golden',
                             'arch_edvr_m_full.npz'))
-    net = define_network(json.loads(bytes(data['__config__']).decode()))
-    net.load_state_dict({k: torch.from_numpy(data[k]) for k in data.files
-                         if not k.startswith('__')}, strict=True)
+    config = json.loads(bytes(data['__config__']).decode())
+    if args.variant == 'M':
+        net = define_network(config)
+        net.load_state_dict({k: torch.from_numpy(data[k])
+                             for k in data.files if not k.startswith('__')},
+                            strict=True)
+    else:
+        torch.manual_seed(args.seed)
+        net = define_network(dict(config, num_feat=128,
+                                  num_reconstruct_block=40))
+        with torch.no_grad():
+            for mod in net.modules():
+                if hasattr(mod, 'conv_offset'):
+                    mod.conv_offset.weight.normal_(0, 0.02)
     net = net.cuda().eval()
     gen = torch.Generator().manual_seed(args.seed)
     wins = [torch.rand(1, 5, 3, 180, 320, generator=gen).cuda()
             for _ in range(4)]
 
-    timings = {}
+    timings, peaks = {}, {}
     for bench in (False, True):
         torch.backends.cudnn.benchmark = bench
-        timings[f'cudnn_benchmark_{bench}'.lower()] = window_ms(net, wins, 8)
+        torch.cuda.reset_peak_memory_stats()
+        key = f'cudnn_benchmark_{bench}'.lower()
+        timings[key] = window_ms(net, wins, 8)
+        peaks[key] = torch.cuda.max_memory_allocated()
     torch.backends.cudnn.benchmark = False
-    print(json.dumps({'window_ms': timings, 'card': card}), flush=True)
+    print(json.dumps({'variant': args.variant, 'window_ms': timings,
+                      'peak_mem_bytes': peaks, 'card': card}), flush=True)
 
     window_ms(net, wins, 2)  # warm again under the port's setting
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -117,6 +136,7 @@ def main():
     busy = sum(by_cat.values())
     n = args.windows
     print(json.dumps({
+        'variant': args.variant,
         'profile': {
             'windows': n, 'kernels': len(kernels),
             'wall_ms_per_window': wall_us / n / 1e3,

@@ -578,6 +578,119 @@ def test_test_cli_on_card_matches_cpu(cuda, tmp_path):
                                atol=3e-4, rtol=0)
 
 
+def _seeded_edvr(config, seed=0, offset_std=0.02):
+    """An EDVR from a torch seed whose offset convs are drawn non-zero, so
+    its DCNs sample off the grid."""
+    torch.manual_seed(seed)
+    net = define_network(dict(type='EDVR', **config)).eval()
+    with torch.no_grad():
+        for mod in net.modules():
+            if hasattr(mod, 'conv_offset'):
+                mod.conv_offset.weight.normal_(0, offset_std)
+    return net
+
+
+EDVR_L = dict(num_feat=128, num_frame=5, deformable_groups=8,
+              num_extract_block=5, num_reconstruct_block=40)
+
+
+def test_edvr_l_window_on_card_matches_cpu(cuda):
+    """A full-width EDVR-L window (128 features, dg 8: c_per 16, cout 128
+    in every DCN) on the card against the plain CPU path."""
+    net = _seeded_edvr(EDVR_L)
+    lq = torch.rand(1, 5, 3, 32, 48, generator=torch.Generator()
+                    .manual_seed(1))
+    with torch.no_grad():
+        want = net(lq)
+        before = dcn.LAUNCHES['dcn_fwd']
+        got = net.to(cuda)(lq.to(cuda)).cpu()
+    assert dcn.LAUNCHES['dcn_fwd'] == before + 4
+    torch.testing.assert_close(got, want, atol=3e-4, rtol=0)
+
+
+@pytest.mark.parametrize('config', [
+    dict(num_feat=32, deformable_groups=4, num_extract_block=2,
+         num_reconstruct_block=2),
+    dict(num_feat=32, deformable_groups=4, num_extract_block=2,
+         num_reconstruct_block=2, with_predeblur=True, hr_in=True)])
+def test_pyramid_matches_window_on_card(cuda, config):
+    """Pyramid clip mode against window mode on the card (1e-5), both
+    against the CPU's window mode (3e-4), at a window batch that does not
+    divide T."""
+    net = _seeded_edvr(config)
+    hw = 64 if config.get('hr_in') else 24
+    clip = torch.rand(7, 3, hw, hw, generator=torch.Generator()
+                      .manual_seed(2))
+    idx = clip_window_indices(7, 5)
+    want = make_clip_restore_fn(net)(clip, idx)
+    net = net.to(cuda)
+    window = make_clip_restore_fn(net, win_batch=3)(clip.to(cuda), idx)
+    pyramid = make_clip_restore_fn(net, win_batch=3, mode='pyramid')(
+        clip.to(cuda), idx)
+    torch.testing.assert_close(pyramid, window, atol=1e-5, rtol=0)
+    torch.testing.assert_close(pyramid.cpu(), want, atol=3e-4, rtol=0)
+
+
+def test_deblur_yaml_cli_on_card_matches_cpu(cuda, tmp_path):
+    """``options/test/EDVR/test_EDVR_L_deblur_REDS.yml`` (EDVR-L, HR input,
+    pre-deblur) through ``python -m edvr_tpu_torch.test`` on the card, from
+    a seeded checkpoint, against ``--device cpu``: the PSNR tables agree
+    and the card model's output on a window is the CPU path's within
+    3e-4."""
+    import subprocess
+    pytest.importorskip('cv2')
+    yaml = pytest.importorskip('yaml')
+    from test_torch_cli import _make_clips
+    repo = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    yml = osp.join(repo, 'options', 'test', 'EDVR',
+                   'test_EDVR_L_deblur_REDS.yml')
+    with open(yml) as f:
+        config = yaml.safe_load(f)['network_g']
+    net = _seeded_edvr({k: v for k, v in config.items() if k != 'type'})
+    ckpt = str(tmp_path / 'net_g.pth')
+    torch.save({'params': net.state_dict()}, ckpt)
+    root = str(tmp_path / 'clips')
+    _make_clips(root, clips=('000',), frames=5, lq_hw=64, scale=1)
+    meta = str(tmp_path / 'meta.txt')
+    with open(meta, 'w') as f:
+        f.write('000 5 (64,64,3)\n')
+    lq = torch.rand(1, 5, 3, 64, 64, generator=torch.Generator()
+                    .manual_seed(3))
+    np.save(tmp_path / 'lq.npy', lq.numpy())
+    code = (
+        'import sys, numpy as np, torch\n'
+        'from edvr_tpu_torch.test import main\n'
+        'model = main(["-opt", sys.argv[1], "--device", sys.argv[2], '
+        '"--force_yml", *sys.argv[5:]])\n'
+        'lq = torch.from_numpy(np.load(sys.argv[3])).to(model.device)\n'
+        'with torch.no_grad():\n'
+        '    np.save(sys.argv[4], model.net_g(lq).cpu().numpy())\n'
+        'np.save(sys.argv[4] + ".psnr.npy", model.metric_results["000"])\n'
+        'print(model.device)\n')
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.environ.get('PYTHONPATH', '')]))
+    outs = {}
+    for device in ('cuda', 'cpu'):
+        out = str(tmp_path / f'out_{device}.npy')
+        proc = subprocess.run(
+            [sys.executable, '-c', code, yml, device,
+             str(tmp_path / 'lq.npy'), out,
+             f'datasets:test_1:dataroot_gt={root}/gt',
+             f'datasets:test_1:dataroot_lq={root}/lq',
+             f'datasets:test_1:meta_info_file={meta}',
+             f'path:pretrain_network_g={ckpt}', 'val:save_img=false'],
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=900)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert proc.stdout.split()[-1].startswith(device)
+        outs[device] = (np.load(out), np.load(out + '.psnr.npy'))
+    assert outs['cuda'][0].shape == (1, 3, 64, 64)
+    np.testing.assert_allclose(outs['cuda'][0], outs['cpu'][0], atol=3e-4,
+                               rtol=0)
+    # uint8 rounding of outputs 3e-4 apart moves a PSNR by far less
+    np.testing.assert_allclose(outs['cuda'][1], outs['cpu'][1], atol=0.05)
+
+
 # bf16 kernel vs the bf16 plain version, relative to each result's
 # largest entry. Forward: the same rounding points (coefficient and
 # per-corner product in bf16), the float32 contraction summed in another

@@ -4,8 +4,9 @@
 
 Drives the port's paths at EDVR-M x4 full width (64 features, 5 frames,
 dg=8, 5+10 blocks, TSA; fp32 with TF32 off, and the bf16 mixed-precision
-training step of the shipped YAML), and EDVR-L's test configurations at
-theirs (128 features, 5 + 40 blocks; x4 SR, deblur with HR input, SRblur,
+training step of the shipped YAML, on the direct and the packed route),
+EDVR-L's training YAMLs and its test configurations at theirs (128
+features, 5 + 40 blocks; x4 SR, deblur with HR input, SRblur,
 Vimeo90K per window, pyramid clip mode, the packed route): whole-clip inference
 (``options/test/EDVR/test_EDVR_M_x4_SR_REDS.yml``, window mode,
 win_batch=1) and training (``options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml``)
@@ -88,36 +89,64 @@ one flushed JSON line with its ``seconds``:
 15. ablate_l1: every ablation variant of ``dcn_fwd.cu``
     (``ops/dcn_ablate.py``) against its plain version at EDVR-M L1 in fp32
     and bf16, then the timing table of
-    ``python -m edvr_tpu_torch.tools.ablate_dcn``, one line per variant.
-16-21 run in a child process (``chip_smoke.py --edvr-l OUT``) under the
+    ``python -m edvr_tpu_torch.tools.ablate_dcn``, one line per variant;
+16. kernel_blend_bf16_<level>: the blend GEMM's bf16 form
+    (``blend_matmul_bf16``) against its plain version (the bf16 products
+    contracted in float32) on the packed route's bf16 inputs at EDVR-M's
+    inference L1/L2/L3 (and a ragged NP), EDVR-L's L1 (L_L1: c_per 16,
+    cout 128) and the packed bf16 training step's shapes (train_<level>:
+    n 20, 64/32/16 px, c_per 8, cout 64); times beside the bytes bound,
+    the plain version, ``torch.addmm`` on the bf16 strip and the fp32
+    kernel; at the training shapes, kernel_gather_bf16_train_<level>: the
+    row gather of the bf16 tile table, bitwise against ``index_select``;
+17. packed_mp_train: EDVR-M bf16 training steps on the packed route (32
+    gathers and 32 bf16 blends per step, no other kernel), finite losses,
+    and from the golden weights and one batch the first bf16 step's
+    gradient against the fp32 packed step's (the mp_train gate);
+18. kernel_l_bwd_<level>: the DCN backward (fp32 and bf16) at EDVR-L's
+    training shapes (n 20, c_per 16, cout 128, 64/32/16 px, offsets beyond
+    +-10 px) against autograd through the plain version, times beside the
+    bounds;
+19. edvr_l_train, in a child process (``chip_smoke.py --edvr-l-train
+    OUT``) under the training CLI's own cuDNN choice
+    (``edvr_tpu_torch.train.use_train_cudnn_policy``: for EDVR-L the test
+    CLI's): the two shipped EDVR-L training YAMLs through the CLI's
+    functions on a seeded synthetic REDS tree of PNGs
+    (``edvr_tpu_torch.tools.train_edvr_l``), bf16 as shipped, batch 4, 3
+    steps each (4 dcn_fwd_bf16 and 4 dcn_bwd_bf16 launches per step, the
+    TSA freeze cut to 2 steps), one validation pass (180x320, per window);
+    from one seeded state and one batch the bf16 step's gradient against
+    the fp32 step's (the mp_train gate) and an fp32 step with ``remat``
+    against the same step without (STEP_GRAD_TOL).
+20-25 run in a child process (``chip_smoke.py --edvr-l OUT``) under the
 test CLI's cuDNN policy (``edvr_tpu_torch.test.INFERENCE_CUDNN_ENV``, read
 at a process's first convolution), as ``python -m edvr_tpu_torch.test``
-runs them; the phases before keep PyTorch's default, as the training CLI
-does.
+runs them; the phases before 19 keep PyTorch's default, as the training
+CLI does for EDVR-M.
 
-16. kernel_l_<level>: the DCNv2 forward kernel at EDVR-L's shapes (128
+20. kernel_l_<level>: the DCNv2 forward kernel at EDVR-L's shapes (128
     features, dg 8: c_per 16, cout 128) at L1/L2/L3 of 5 frames and at L1
     of 7 (L1_n7), as kernel_<level>;
-17. edvr_l_main_path: EDVR-L (``options/test/EDVR/test_EDVR_L_x4_SR_REDS.yml``,
+21. edvr_l_main_path: EDVR-L (``options/test/EDVR/test_EDVR_L_x4_SR_REDS.yml``,
     5 + 40 blocks, TSA) with seeded weights (``seeded_edvr``: offsets of up
     to 24 px) loaded strictly from a .pth, restoring the 12-frame clip
     through ``create_model`` and ``_clip_validation`` (4 dcn_fwd per
     window); ms per window, network ms per window, peak memory, and one
     window against the plain CPU path;
-18. edvr_l_pyramid: the same clip through ``make_clip_restore_fn`` in
+22. edvr_l_pyramid: the same clip through ``make_clip_restore_fn`` in
     pyramid mode against window mode (1e-5), EDVR-L and EDVR-M, each mode
     timed in turns (window, pyramid, pyramid, window);
-19. edvr_l_deblur: ``test_EDVR_L_deblur_REDS.yml`` (HR input and
+23. edvr_l_deblur: ``test_EDVR_L_deblur_REDS.yml`` (HR input and
     pre-deblur) on a seeded 6-frame 720x1280 clip through the engine, one
     window's HR crop against the plain CPU path; and
     ``test_EDVR_L_x4_SRblur_REDS.yml`` (pre-deblur on LQ input) on one
     window, an LQ crop of it against the CPU;
-20. edvr_l_vimeo: ``test_EDVR_L_x4_SR_Vimeo90K.yml`` (7 frames, the
+24. edvr_l_vimeo: ``test_EDVR_L_x4_SR_Vimeo90K.yml`` (7 frames, the
     per-window protocol) over seeded septuplets on disk (LQ 64x112, GT
     256x448) through ``VideoTestVimeo90KDataset`` and ``validation``:
     PSNR and ms per sequence, each window's result against the direct
     forward of the same window;
-21. packed_edvr_l: the blend GEMM (L1/L2/L3) and row-gather (L1) kernels
+25. packed_edvr_l: the blend GEMM (L1/L2/L3) and row-gather (L1) kernels
     at EDVR-L's packed shapes (4 pixels per 128-lane row, width 9 x 128,
     cout 128) against their plain versions, then EDVR-L on the packed route
     (``EDVR_TPU_DCN_PALLAS=1``) on a 5-frame clip against the direct route.
@@ -154,6 +183,9 @@ sys.path.insert(0, ROOT)
 # are the ablation tool's, so every kernel is bounded against one table
 from edvr_tpu_torch.tools.ablate_dcn import (  # noqa: E402
     PEAK_BYTES, PEAK_OPS, PEAK_TF32, cuda_ms)
+# seeded clips, PNG frames and a REDS-layout tree of them
+from edvr_tpu_torch.tools.synthetic import (  # noqa: E402
+    seeded_clip, write_png, write_reds_tree)
 
 SEED = 0
 DCN_TOL = 1e-4     # kernel vs plain, fp32: same arithmetic, other order
@@ -236,6 +268,10 @@ PACKED_STEPS = 3    # training steps on the packed route and of tap_shared
 # blend kernel vs plain, relative to max|out|: fp32, the same products
 # summed in another order over a width of 1152
 BLEND_TOL = 1e-5
+# the bf16 form (blend_matmul_bf16) vs its plain version, relative to
+# max|out|: the same bf16 products, exact in float32, summed in another
+# order (their rounding to bf16 is the same on both sides)
+BLEND_BF16_TOL = 1e-4
 # scripts/dev/probe_mosaic_gather.py: (R, 128) tables of the three EDVR-M
 # levels' pixel counts, G = 4096 and G = 8 x R gathered rows
 PROBE_ROWS = (3600, 14400, 57600)
@@ -328,6 +364,14 @@ DEBLUR_CPU_CROP = (256, 256)        # HR crop of the deblur window's CPU check
 SRBLUR_CPU_CROP = (96, 160)         # LQ crop of the SRblur window's CPU check
 VIMEO_SEQS = 4                      # synthetic septuplets, LQ 64x112
 PACKED_L_T = 5                      # frames of packed_edvr_l's clip (>= 5)
+# EDVR-L training (edvr_l_train): the two shipped EDVR-L YAMLs at batch 4
+# (as shipped per GPU), bf16 as shipped, a few steps each, the TSA YAML's
+# warm-up cut to L_TSA_ITER; the validation pass's peak memory stays far
+# below the ~18 GB of the FFT choice (the capped choice took 1.91 GB for
+# an EDVR-L window)
+L_TRAIN_STEPS = 3
+L_TSA_ITER = 2
+L_VAL_PEAK_MAX = 8e9
 L_CUTS = ['pretrain: the published EDVR-L checkpoint (not in the repo) -> '
           'seeded weights (torch seed 0, BasicSR init) with each DCN pack\'s '
           f'offset rows drawn and scaled to offsets of up to {OFFSET_PX} px, '
@@ -471,18 +515,6 @@ def load_golden():
     return state, config, data['__input__'], data['__output__']
 
 
-def seeded_clip(T, h, w, gen):
-    """A moving, smooth seeded GT clip (T, 3, 4h, 4w) and its 4x
-    box-downsampled LQ clip (T, 3, h, w), both in [0, 1]."""
-    field = torch.rand(1, 3, h // 8 + T, w // 8 + T, generator=gen)
-    field = F.interpolate(field, scale_factor=32, mode='bicubic',
-                          align_corners=False).clamp(0, 1)
-    gt = torch.cat([field[:, :, 4 * t:4 * t + 4 * h, 4 * t:4 * t + 4 * w]
-                    for t in range(T)])
-    lq = F.avg_pool2d(gt, 4)
-    return lq.contiguous(), gt.contiguous()
-
-
 def train_batches(gen, steps, batch, rng):
     """``steps`` batches of ``batch`` REDS-style items: 5-frame LQ windows
     and their centre GT frame cut from seeded in-memory clips by the port's
@@ -562,17 +594,21 @@ def packed_kernel_inputs(args):
 
 
 def blend_bound(g_cat, cs_cat, wexp_g, out_prev):
-    """The blend GEMM's bound: 2*NP*width*cout fp32 operations taken as
-    3xTF32 on the tensor cores (three TF32 products each) vs its inputs
-    read once and its output written once. The fifth value is the bound
-    with the operations on the fp32 pipe (a GEMM in fp32 FMAs), for
-    comparison."""
+    """The blend GEMM's bound: 2*NP*width*cout operations, fp32 ones taken
+    as 3xTF32 on the tensor cores (three TF32 products each), bf16 ones at
+    the bf16 rate (one exact product each), vs its inputs read once and its
+    float32 output written once (g_cat, cs_cat and wexp_g in their dtype,
+    out_prev and out float32). The fifth value is the bound with the
+    operations on the fp32 pipe (a GEMM in fp32 FMAs), for comparison."""
     NP, width = g_cat.shape
     cout = wexp_g.shape[1]
     flops = 2 * NP * width * cout
-    nbytes = 4 * (g_cat.numel() + cs_cat.numel() + wexp_g.numel()
-                  + 2 * out_prev.numel())
-    t_ops, t_bytes = 3 * flops / PEAK_TF32, nbytes / PEAK_BYTES
+    nbytes = (g_cat.element_size() * (g_cat.numel() + cs_cat.numel()
+                                      + wexp_g.numel())
+              + 4 * 2 * out_prev.numel())
+    t_ops = (3 * flops / PEAK_TF32 if g_cat.dtype == torch.float32
+             else flops / PEAK_OPS[g_cat.dtype])
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes,
             max(flops / PEAK_OPS[torch.float32], t_bytes) * 1e3)
@@ -580,11 +616,12 @@ def blend_bound(g_cat, cs_cat, wexp_g, out_prev):
 
 def gather_bound(table, idx):
     """The row gather's bound: each table row that these indices name read
-    once, the G output rows of L floats written once, and the G indices
+    once, the G output rows of L elements written once, and the G indices
     read; no arithmetic."""
     G, L = idx.shape[0], table.shape[1]
     rows_read = torch.unique(idx).numel()
-    nbytes = rows_read * L * 4 + G * L * 4 + G * 4
+    row_bytes = L * table.element_size()
+    nbytes = rows_read * row_bytes + G * row_bytes + G * idx.element_size()
     return nbytes / PEAK_BYTES * 1e3, 'bytes', nbytes, rows_read
 
 
@@ -762,11 +799,15 @@ def dcn_fwd_check(args, tag, ph):
 
 def blend_check(cases, c_per, tag, ph):
     """The blend GEMM kernel against its plain version on each case of
-    (g_cat, cs_cat, wexp_g, out_prev) (fails above BLEND_TOL of max|out|),
-    then ms of the first case by CUDA events beside the plain version, the
-    bound and ``torch.addmm`` (the GEMM alone). Returns the readings and
+    (g_cat, cs_cat, wexp_g, out_prev) (fails above BLEND_TOL of max|out|,
+    BLEND_BF16_TOL in bf16), then ms of the first case by CUDA events
+    beside the plain version, the bound and ``torch.addmm`` (the GEMM
+    alone; in bf16 on the bf16 strip, cuBLAS accumulating in float32), and
+    in bf16 the fp32 kernel on the same values. Returns the readings and
     puts them in the phase's line."""
     from edvr_tpu_torch.ops import dcn_blend
+    low = cases[''][0].dtype == torch.bfloat16
+    tol = BLEND_BF16_TOL if low else BLEND_TOL
     errs = {}
     with torch.no_grad():
         for case_tag, a in cases.items():
@@ -777,33 +818,83 @@ def blend_check(cases, c_per, tag, ph):
             scale = want.abs().max().item()
             errs[f'err{case_tag}'] = err
             errs[f'max_abs_out{case_tag}'] = scale
-            if not err <= BLEND_TOL * scale:
+            if not (got.dtype == torch.float32 and err <= tol * scale):
                 raise AssertionError(
-                    f'blend_matmul {tag}{case_tag}: max abs err {err} > '
-                    f'{BLEND_TOL} x max|out| {scale}')
+                    f'blend_matmul {tag}{case_tag}: {got.dtype}, max abs err '
+                    f'{err} > {tol} x max|out| {scale}')
             del got, want
         args = cases['']
         ms = cuda_ms(lambda: dcn_blend.blend_matmul_cuda(*args, c_per), 20)
         plain_ms = cuda_ms(lambda: dcn_blend.blend_matmul_group_plain(
             *args, c_per), 5)
         blended = args[0] * args[1].repeat_interleave(c_per, 1)
-        library_ms = cuda_ms(
-            lambda: torch.addmm(args[3], blended, args[2]), 20)
-        del blended
+        prev = args[3].to(blended.dtype)
+        library_ms = cuda_ms(lambda: torch.addmm(prev, blended, args[2]), 20)
+        del blended, prev
+        extra = {}
+        if low:
+            args32 = [a.float() for a in args]
+            extra['fp32_ms'] = cuda_ms(
+                lambda: dcn_blend.blend_matmul_cuda(*args32, c_per), 20)
+            del args32
     bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = blend_bound(*args)
     result = dict(max_abs_err=max(v for k, v in errs.items()
                                   if k.startswith('err')),
                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by=bound_by, bound_ms_fp32_pipe=fp32_pipe_ms,
-                  library_ms=library_ms)
+                  library_ms=library_ms, **extra)
+    library = ('torch.addmm(out_prev, blended, wexp_g): the GEMM alone, '
+               'the blend formed beforehand')
+    if low:
+        library += ('; bf16 operands and a bf16 out_prev (cuBLAS, float32 '
+                    'accumulation, bf16 result)')
     ph.info.update(
         g_cat=list(args[0].shape), cs_cat=list(args[1].shape),
         wexp_g=list(args[2].shape), c_per=c_per,
-        tol_rel_to_max_out=BLEND_TOL, gflop=flops / 1e9,
-        mbytes=nbytes / 1e6, **errs, **result,
-        library='torch.addmm(out_prev, blended, wexp_g): the GEMM alone, '
-                'the blend formed beforehand')
+        dtype=str(args[0].dtype).replace('torch.', ''),
+        tol_rel_to_max_out=tol, gflop=flops / 1e9,
+        mbytes=nbytes / 1e6, **errs, **result, library=library)
     return result
+
+
+def bwd_check(args, tol, tag, gen):
+    """The DCN backward kernel (``dcn_bwd`` or ``dcn_bwd_bf16``, by the
+    dtype of ``args``: x, offset, mask, weight, bias) against autograd
+    through the plain version in that dtype, each gradient relative to
+    its largest entry (fails above ``tol``), then ms by CUDA events beside
+    the plain backward and the bound. Returns the readings."""
+    from edvr_tpu_torch.ops import dcn
+    geo = (1, 1, 1)  # stride, padding, dilation
+    with torch.no_grad():
+        want_out = dcn.modulated_deform_conv_plain(*args, *geo, 1, 8)
+    dout = torch.randn(want_out.shape, generator=gen).cuda().to(
+        args[0].dtype)
+    del want_out
+    got = dcn.dcn_bwd_cuda(dout, *args[:4], *geo, 8)
+    leaves = [a.clone().requires_grad_() for a in args[:4]]
+    plain_out = dcn.modulated_deform_conv_plain(*leaves, args[4], *geo, 1,
+                                                8)
+    want = torch.autograd.grad(plain_out, leaves, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w_ in zip(('dx', 'd_offset', 'd_mask', 'd_weight'), got,
+                           want):
+        errs[name] = rel_err(g, w_)
+        if not (g.dtype == w_.dtype and g.shape == w_.shape
+                and torch.isfinite(g.float()).all() and errs[name] <= tol):
+            raise AssertionError(f'dcn_bwd {tag} {name}: rel err '
+                                 f'{errs[name]} > {tol}')
+    ms = cuda_ms(lambda: dcn.dcn_bwd_cuda(dout, *args[:4], *geo, 8), 20)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        plain_out, leaves, dout, retain_graph=True), 3)
+    bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = dcn_bwd_bound(
+        *args[:4])
+    return dict(max_abs_err=max((g.float() - w_.float()).abs().max().item()
+                                for g, w_ in zip(got, want)),
+                rel_err=errs, tol_rel_to_max=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms_fp32_pipe=fp32_pipe_ms, gflop=flops / 1e9,
+                mbytes=nbytes / 1e6)
 
 
 def gather_check(table, rows, tag, ph):
@@ -938,15 +1029,6 @@ def window_vs_cpu(net, net_opt, window):
                              f'{tuple(on_card.shape)}, max abs err {err} > '
                              f'{GOLDEN_TOL}')
     return err, on_card, cpu_secs
-
-
-def write_png(path, frame):
-    """A (3, h, w) RGB frame in [0, 1] as an 8-bit BGR PNG."""
-    import cv2
-    img = (frame.permute(1, 2, 0).numpy()[:, :, ::-1] * 255.).round()
-    os.makedirs(osp.dirname(path), exist_ok=True)
-    if not cv2.imwrite(path, img.astype(np.uint8)):
-        raise IOError(f'cannot write {path}')
 
 
 def write_vimeo(root, gen, seqs, lq_hw):
@@ -2057,6 +2139,150 @@ def main():
                        ms={f'{m}_{d}': r['ms']
                            for (m, d), r in ablate_results.items()})
 
+    # the packed route's bf16 blend (blend_matmul_bf16) at the shapes of
+    # its main path, the packed bf16 training step (EDVR-M, n = TRAIN_N,
+    # 64/32/16 px: train_<level>), of EDVR-M's inference levels (and a
+    # ragged NP) and of EDVR-L's packed L1; at the training shapes the row
+    # gather of the bf16 table too (kernel_gather_bf16_train_<level>)
+    # (the training shapes draw from a generator of their own, so the
+    # later phases' data stay as they were)
+    bf16 = torch.bfloat16
+    blend_bf16, gather_bf16 = {}, {}
+    train_gen = torch.Generator().manual_seed(SEED + 11)
+    bf16_levels = [(lv, hw, 64, 5, gen) for lv, hw in LEVELS.items()]
+    bf16_levels.append(('L_L1', LEVELS['L1'], 128, 5, gen))
+    bf16_levels += [(f'train_{lv}', hw, 64, TRAIN_N, train_gen)
+                    for lv, hw in TRAIN_LEVELS.items()]
+    for level, (h, w), c, n, level_gen in bf16_levels:
+        with Phase(f'kernel_blend_bf16_{level}') as ph, torch.no_grad():
+            dcn_args = [a.to(bf16) for a in dcn_inputs(h, w, level_gen, n=n,
+                                                       c=c)]
+            gather_args, (*args, c_per) = packed_kernel_inputs(dcn_args)
+            cases = {'': args}
+            if level == 'L1':  # a ragged last block of rows
+                cases['_ragged'] = [a[:1013].contiguous() if a.shape[0] ==
+                                    args[0].shape[0] else a for a in args]
+            blend_bf16[level] = blend_check(cases, c_per, f'bf16 {level}',
+                                            ph)
+            ph.info['card'] = smi
+            del dcn_args, args, cases
+        if level.startswith('train_'):
+            with Phase(f'kernel_gather_bf16_{level}') as ph:
+                if gather_args[0].dtype != bf16:
+                    raise AssertionError(f'the packed bf16 route gathers a '
+                                         f'{gather_args[0].dtype} table')
+                gather_bf16[level] = gather_check(*gather_args,
+                                                  f'bf16 {level}', ph)
+                ph.info['card'] = smi
+        del gather_args
+
+    with Phase('packed_mp_train') as ph, tempfile.TemporaryDirectory() as tmp, \
+            packed_route():
+        ckpt = osp.join(tmp, 'edvr_m_golden.pth')
+        torch.save({'params': state}, ckpt)
+
+        def packed_model(mixed_precision, tsa_iter=TSA_ITER):
+            opt = parse_dict(json.loads(json.dumps(EDVR_M_MP_OPT)),
+                             is_train=True, root=tmp)
+            opt['train'].update(mixed_precision=mixed_precision,
+                                tsa_iter=tsa_iter, total_iter=PACKED_STEPS)
+            opt['device'] = 'cuda'
+            opt['path']['pretrain_network_g'] = ckpt
+            return create_model(opt)
+
+        model = packed_model('bf16')
+        batches = train_batches(gen, PACKED_STEPS, BATCH,
+                                random.Random(SEED + 4))
+        losses, step_secs, per_step = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        dcn.LAUNCHES.update({k: 0 for k in dcn.LAUNCHES})
+        for it, batch in enumerate(batches, 1):
+            counts = dict(dcn.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+            torch.cuda.synchronize()
+            step_secs.append(time.perf_counter() - t0)
+            per_step.append({k: dcn.LAUNCHES[k] - counts[k] for k in counts})
+            losses.append(float(model.log_dict['l_pix']))
+        packed_mp_launches = dict(dcn.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f'packed bf16 losses not finite: {losses}')
+        if any(c != launch_counts(row_gather=32, blend_matmul_bf16=32)
+               for c in per_step):
+            raise AssertionError(f'packed bf16 launches per step: '
+                                 f'{per_step}')
+        del model
+
+        # the first step's gradient against the fp32 packed step's, from
+        # the golden weights and one batch, every parameter learning
+        grads = {}
+        for mp in ('bf16', None):
+            m = packed_model(mp, tsa_iter=None)
+            m.feed_data(batches[0])
+            m.optimize_parameters(1)
+            grads[mp] = {n: p.grad.clone() for n, p in
+                         m.net_g.named_parameters()}
+            del m
+        grad_total, grad_cos = grad_gaps(grads['bf16'], grads[None])
+        worst_g = min(grad_cos, key=grad_cos.get)
+        if not (grad_total <= MP_GRAD_TOL
+                and grad_cos[worst_g] >= MP_LEAF_COS_MIN):
+            raise AssertionError(
+                f'packed bf16 vs fp32 gradient: gap {grad_total} (tol '
+                f'{MP_GRAD_TOL}), {worst_g} cosine {grad_cos[worst_g]} '
+                f'(least {MP_LEAF_COS_MIN})')
+        timed = sorted(step_secs)
+        ph.info.update(
+            steps=PACKED_STEPS, batch=BATCH, lq_crop=64, pcd_n=TRAIN_N,
+            mixed_precision='bf16',
+            cuts=MP_CUTS[:1] + [f'train.total_iter: 600000 -> '
+                                f'{PACKED_STEPS} steps'] + MP_CUTS[2:],
+            losses=losses, launches=packed_mp_launches,
+            launches_per_step=per_step[0],
+            ms_per_step_median=timed[len(timed) // 2] * 1e3,
+            ms_per_step_all=[t * 1e3 for t in step_secs],
+            peak_mem_bytes=peak, grad_gap_vs_fp32=grad_total,
+            grad_tol=MP_GRAD_TOL,
+            grad_least_cosine=[worst_g, grad_cos[worst_g]],
+            grad_cosine_min=MP_LEAF_COS_MIN, card=smi)
+        del grads
+
+    # the DCN backward at EDVR-L's training shapes: c_per 16, cout 128
+    l_bwd = {'fp32': {}, 'bf16': {}}
+    for level, (h, w) in TRAIN_LEVELS.items():
+        with Phase(f'kernel_l_bwd_{level}') as ph:
+            args32 = dcn_inputs(h, w, gen, n=TRAIN_N, c=128)
+            for dname, dt, tol in (('fp32', torch.float32, BWD_TOL),
+                                   ('bf16', bf16, BF16_BWD_TOL)):
+                l_bwd[dname][level] = bwd_check(
+                    [a.to(dt) for a in args32], tol, f'EDVR-L {dname} '
+                    f'{level}', gen)
+            ph.info.update(shape=list(args32[0].shape), cout=128, c_per=16,
+                           tol={'fp32': BWD_TOL, 'bf16': BF16_BWD_TOL},
+                           **{d: r[level] for d, r in l_bwd.items()},
+                           card=smi)
+            del args32
+
+    # EDVR-L training in a child process under the training CLI's own
+    # cuDNN choice (edvr_tpu_torch.train.use_train_cudnn_policy), which it
+    # applies before its first convolution
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = osp.join(tmp, 'edvr_l_train.json')
+        env = {k: v for k, v in os.environ.items()
+               if k not in ('TORCH_CUDNN_V8_API_DISABLED',
+                            'CUDNN_CONV_WSCAP_DBG')}
+        child = subprocess.run([sys.executable, osp.abspath(__file__),
+                                '--edvr-l-train', out_path], check=False,
+                               env=env)
+        if child.returncode:
+            raise AssertionError(f'the EDVR-L training phase failed (exit '
+                                 f'{child.returncode})')
+        with open(out_path) as f:
+            edvr_l_train = json.load(f)
+
     # the EDVR-L phases in a child process under the test CLI's cuDNN
     # policy (edvr_tpu_torch.test.INFERENCE_CUDNN_ENV), which is read at a
     # process's first convolution; this process's phases keep the default
@@ -2224,6 +2450,46 @@ def main():
                                 f'bound_ms_{level}': r['bound_ms'],
                                 f'bound_ms_fp32_pipe_{level}':
                                     r['bound_ms_fp32_pipe']})
+    # EDVR-L training: the backward at c_per 16 / cout 128 (L_<level>), and
+    # the launches of the edvr_l_train phase (its bf16 steps, then one fp32,
+    # one bf16 and one fp32 remat step)
+    for entry, dname in ((kernel_bwd, 'fp32'), (kernel_bwd_bf16, 'bf16')):
+        entry['max_abs_err'] = max(entry['max_abs_err'], *(
+            r['max_abs_err'] for r in l_bwd[dname].values()))
+        for level, r in l_bwd[dname].items():
+            entry.update({f'{key}_L_{level}': r[key] for key in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_ms_fp32_pipe')})
+    l_train = edvr_l_train['launches']
+    for entry in (kernel, kernel_bwd, kernel_fwd_bf16, kernel_bwd_bf16):
+        entry['launches_edvr_l_train'] = (l_train['bf16_steps'][entry['name']]
+                                          + l_train['gate_steps'][
+                                              entry['name']])
+    # the packed route's bf16 blend: its main path is the packed bf16
+    # training step (packed_mp_train); ms at its L1 (train_L1)
+    bb1 = blend_bf16['train_L1']
+    kernel_blend_bf16 = {
+        'name': 'blend_matmul_bf16', 'route': 'cuda',
+        'source': 'edvr_tpu_torch/csrc/blend_matmul.cu',
+        'replaces': 'edvr_tpu/ops/dcn_pallas.py:37',
+        'replaces_function':
+            'edvr_tpu/ops/dcn_pallas.py::blend_matmul_group (bf16)',
+        'launches': packed_mp_launches['blend_matmul_bf16'],
+        'max_abs_err': max(r['max_abs_err'] for r in blend_bf16.values()),
+        'ms': bb1['ms'], 'plain_ms': bb1['plain_ms'],
+        'bound_ms': bb1['bound_ms'], 'bound_by': bb1['bound_by'],
+        'library_ms': bb1['library_ms'],
+        'library': 'torch.addmm on the bf16 strip, the GEMM only (cuBLAS, '
+                   'float32 accumulation)'}
+    for level, r in blend_bf16.items():
+        kernel_blend_bf16.update({f'{key}_{level}': r[key] for key in (
+            'ms', 'plain_ms', 'bound_ms', 'library_ms', 'fp32_ms')})
+    kernel_gather['launches_packed_mp_train'] = packed_mp_launches[
+        'row_gather']
+    kernel_gather['max_abs_err'] = max(kernel_gather['max_abs_err'], *(
+        r['max_abs_err'] for r in gather_bf16.values()))
+    for level, r in gather_bf16.items():
+        kernel_gather.update({f'{key}_bf16_{level}': r[key] for key in (
+            'ms', 'plain_ms', 'bound_ms', 'library_ms')})
     # the ablation variants: their main path is the timing tool's run
     kernels_ablate = [
         {'name': f'dcn_fwd_ablate_{mode}_{dname}', 'route': 'cuda',
@@ -2237,7 +2503,8 @@ def main():
         for (mode, dname), r in ablate_results.items()]
     print(json.dumps({'kernels': [kernel, kernel_bwd, kernel_blend,
                                   kernel_gather, kernel_fwd_bf16,
-                                  kernel_bwd_bf16, *kernels_ablate]}),
+                                  kernel_bwd_bf16, kernel_blend_bf16,
+                                  *kernels_ablate]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -2270,7 +2537,157 @@ def edvr_l_main(out_path):
     return 0
 
 
+def edvr_l_train_main(out_path):
+    """The edvr_l_train phase, as ``python -m edvr_tpu_torch.train`` runs
+    EDVR-L: its own cuDNN choice applied before the first convolution,
+    TF32 off (``parse_options``), set up and stepped by the EDVR-L training
+    tool's functions (``tools/train_edvr_l.py``); the readings written to
+    ``out_path`` as JSON. The kernels are the parent's build."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false; this run '
+              'needs a CUDA card', file=sys.stderr)
+        return 1
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.test import INFERENCE_CUDNN_ENV
+    from edvr_tpu_torch.tools import train_edvr_l as tl
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = {'launches': {}}
+
+    with Phase('edvr_l_train') as ph, tempfile.TemporaryDirectory() as tmp:
+        root = write_reds_tree(osp.join(tmp, 'reds'), seed=SEED)
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the engine's experiment paths
+        runs, cudnn_env = {}, None
+
+        def build(yml, **kw):
+            return tl.build(yml, root, BATCH, total_iter=L_TRAIN_STEPS,
+                            seed=SEED, **kw)
+
+        native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+        for tag, yml, tsa in (('woTSA', 'train_EDVR_L_x4_SR_REDS_woTSA',
+                               None),
+                              ('TSA', 'train_EDVR_L_x4_SR_REDS', L_TSA_ITER)):
+            _, env, cuts, loaders, model = build(yml, tsa_iter=tsa)
+            if cudnn_env is None:  # the first build, before any convolution
+                cudnn_env = env
+            if env != INFERENCE_CUDNN_ENV:
+                raise AssertionError(f'EDVR-L training cuDNN choice {env}, '
+                                     f'expected {INFERENCE_CUDNN_ENV}')
+            params = dict(model.net_g.named_parameters())
+            snap = lambda: {n: p.detach().clone() for n, p in params.items()}
+            before = [snap()]
+
+            def tsa_freeze(it):
+                if tsa and it == tsa - 1:  # the warm-up's last step
+                    now = snap()
+                    frozen_moved = [n for n in params if 'fusion' not in n
+                                    and not torch.equal(now[n], before[0][n])]
+                    fusion_still = [n for n in params if 'fusion' in n
+                                    and torch.equal(now[n], before[0][n])]
+                    if frozen_moved or fusion_still:
+                        raise AssertionError(
+                            f'EDVR-L TSA warm-up: frozen parameters moved '
+                            f'{frozen_moved[:3]}, fusion parameters did not '
+                            f'{fusion_still[:3]}')
+                    before[0] = now
+                if tsa and it == tsa:  # the first step after it
+                    now = snap()
+                    still = [n for n in params
+                             if torch.equal(now[n], before[0][n])]
+                    if still:
+                        raise AssertionError(f'EDVR-L: after tsa_iter '
+                                             f'parameters did not move: '
+                                             f'{still[:3]}')
+
+            r = tl.run_steps(model, loaders, L_TRAIN_STEPS, on_step=tsa_freeze)
+            if not r['losses_finite']:
+                raise AssertionError(f'EDVR-L {tag} losses not finite: '
+                                     f"{r['losses']}")
+            if any(c != dict(dcn_fwd_bf16=4, dcn_bwd_bf16=4)
+                   for c in r['launches_all']):
+                raise AssertionError(f'EDVR-L {tag} launches per step: '
+                                     f"{r['launches_all']}")
+            r.pop('launches_all')
+            runs[tag] = dict(cuts=cuts, **r)
+            if tag == 'TSA':
+                # one validation pass of the REDS4 protocol (per window,
+                # 180x320 LQ), timed after a warm-up pass: the FFT choice
+                # would take ~18 GB and ~1 s a window
+                v = tl.run_validation(model, loaders)
+                if not (v['val_psnr_finite']
+                        and v['peak_mem_bytes_val'] <= L_VAL_PEAK_MAX):
+                    raise AssertionError(
+                        f"EDVR-L validation: PSNR {v['val_psnr']}, peak "
+                        f"{v['peak_mem_bytes_val']} bytes (at most "
+                        f'{L_VAL_PEAK_MAX})')
+                runs[tag].update(v)
+            del model, loaders, params, before
+        out['launches']['bf16_steps'] = dict(native.LAUNCHES)
+
+        # from one seeded initial state and one batch: the bf16 step's
+        # first gradient against the fp32 step's (the bf16 gate), and the
+        # fp32 step with remat against the same step without
+        _, _, _, loaders, m32 = build('train_EDVR_L_x4_SR_REDS', mp=None,
+                                      tsa_iter=0)
+        init = {k: v.clone() for k, v in m32.net_g.state_dict().items()}
+        batch = tl.prefetch(loaders).next()
+        native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+        grads = {}
+
+        def step_grads(model):
+            model.net_g.load_state_dict(init)
+            model.feed_data(batch)
+            model.optimize_parameters(1)
+            return {n: p.grad.clone() for n, p in
+                    model.net_g.named_parameters()}
+
+        grads['fp32'] = step_grads(m32)
+        del m32
+        for tag, kw in (('bf16', dict(tsa_iter=0)),
+                        ('fp32_remat', dict(mp=None, tsa_iter=0,
+                                            remat=True))):
+            _, _, _, _, m = build('train_EDVR_L_x4_SR_REDS', **kw)
+            if tag == 'fp32_remat' and not m.net_g.remat:
+                raise AssertionError('remat: the network was built without')
+            grads[tag] = step_grads(m)
+            del m
+        out['launches']['gate_steps'] = dict(native.LAUNCHES)
+        grad_total, grad_cos = grad_gaps(grads['bf16'], grads['fp32'])
+        worst_g = min(grad_cos, key=grad_cos.get)
+        remat_errs = {n: rel_err(grads['fp32_remat'][n], g)
+                      for n, g in grads['fp32'].items()}
+        worst_r = max(remat_errs, key=remat_errs.get)
+        if not (grad_total <= MP_GRAD_TOL
+                and grad_cos[worst_g] >= MP_LEAF_COS_MIN):
+            raise AssertionError(
+                f'EDVR-L bf16 vs fp32 gradient: gap {grad_total} (tol '
+                f'{MP_GRAD_TOL}), {worst_g} cosine {grad_cos[worst_g]} '
+                f'(least {MP_LEAF_COS_MIN})')
+        if not remat_errs[worst_r] <= STEP_GRAD_TOL:
+            raise AssertionError(f'EDVR-L remat vs plain gradients: '
+                                 f'{worst_r} rel err {remat_errs[worst_r]} '
+                                 f'> {STEP_GRAD_TOL}')
+        os.chdir(cwd)
+        ph.info.update(
+            batch=BATCH, steps=L_TRAIN_STEPS, mixed_precision='bf16',
+            network='EDVR-L: 128 features, dg 8, 5 + 40 blocks',
+            cudnn_env=cudnn_env, runs=runs,
+            grad_gap_bf16_vs_fp32=grad_total, grad_tol=MP_GRAD_TOL,
+            grad_least_cosine=[worst_g, grad_cos[worst_g]],
+            grad_cosine_min=MP_LEAF_COS_MIN,
+            remat_vs_plain_worst=[worst_r, remat_errs[worst_r]],
+            remat_tol=STEP_GRAD_TOL, launches=out['launches'], card=smi)
+    with open(out_path, 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--edvr-l']:
         sys.exit(edvr_l_main(sys.argv[2]))
+    if sys.argv[1:2] == ['--edvr-l-train']:
+        sys.exit(edvr_l_train_main(sys.argv[2]))
     sys.exit(main())

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from edvr_tpu_torch.archs.arch_util import (DCNv2Pack, ResidualBlockNoBN,
                                             WarpAlignPack, lrelu, make_layer)
@@ -217,14 +218,22 @@ class EDVR(nn.Module):
     the frames are HR (h, w multiples of 16), the pyramid starts at h/4 and
     the output is (b, c, h, w) with the centre frame itself as the base.
     ``with_predeblur`` puts the pre-deblur pyramid and a 1x1 conv in place
-    of ``conv_first``.
+    of ``conv_first``. ``center_frame_idx`` defaults to 2, as in BasicSR
+    and the JAX package; ``None`` means ``num_frame // 2``.
+
+    ``remat`` recomputes each residual block of the two trunks
+    (``feature_extraction``, ``reconstruction``) in the backward pass
+    instead of keeping its activations, as the JAX package's ``nn.remat``
+    does (``edvr_tpu/archs/edvr_arch.py:246-268``): in training with
+    autograd on, each block runs under ``torch.utils.checkpoint``. The
+    parameters and their names do not change.
     """
 
     def __init__(self, num_in_ch=3, num_out_ch=3, num_feat=64, num_frame=5,
                  deformable_groups=8, num_extract_block=5,
-                 num_reconstruct_block=10, center_frame_idx=None,
+                 num_reconstruct_block=10, center_frame_idx=2,
                  hr_in=False, with_predeblur=False, with_tsa=True,
-                 align_variant='dcn'):
+                 align_variant='dcn', remat=False):
         super().__init__()
         if hr_in and not with_predeblur:
             # the stride convs that take an HR input to the LR grid are
@@ -234,6 +243,7 @@ class EDVR(nn.Module):
         nf = num_feat
         self.center_frame_idx = (num_frame // 2 if center_frame_idx is None
                                  else center_frame_idx)
+        self.remat = remat
         self.hr_in = hr_in
         self.with_predeblur = with_predeblur
         self.with_tsa = with_tsa
@@ -266,6 +276,25 @@ class EDVR(nn.Module):
         self.conv_hr = nn.Conv2d(64, 64, 3, 1, 1)
         self.conv_last = nn.Conv2d(64, num_out_ch, 3, 1, 1)
 
+    def _trunk(self, blocks, x):
+        """A residual trunk; with ``remat`` in training, each block under
+        ``torch.utils.checkpoint``. The block's parameters are handed to
+        the checkpointed call as tensors, so the recomputation in the
+        backward pass uses the ones this forward used (under
+        ``torch.func.functional_call``, as the bf16 step runs, those are
+        the bf16 copies, which are no longer bound by then)."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return blocks(x)
+        for block in blocks:
+            names, params = zip(*block.named_parameters())
+
+            def run(x, *params, block=block, names=names):
+                return torch.func.functional_call(
+                    block, dict(zip(names, params)), (x,))
+
+            x = checkpoint(run, x, *params, use_reentrant=False)
+        return x
+
     def extract_pyramid(self, xf):
         """Per-frame L1/L2/L3 features (reference: edvr_arch.py:376-388) of
         (n, c, h, w) frames: (n, nf, h, w), (n, nf, h/2, w/2), (n, nf, h/4,
@@ -274,7 +303,7 @@ class EDVR(nn.Module):
             feat_l1 = self.conv_1x1(self.predeblur(xf))
         else:
             feat_l1 = lrelu(self.conv_first(xf))
-        feat_l1 = self.feature_extraction(feat_l1)
+        feat_l1 = self._trunk(self.feature_extraction, feat_l1)
         feat_l2 = lrelu(self.conv_l2_2(lrelu(self.conv_l2_1(feat_l1))))
         feat_l3 = lrelu(self.conv_l3_2(lrelu(self.conv_l3_1(feat_l2))))
         return feat_l1, feat_l2, feat_l3
@@ -290,7 +319,7 @@ class EDVR(nn.Module):
         else:
             feat = self.fusion(aligned.reshape(b, t * nf, h, w))
 
-        out = self.reconstruction(feat)
+        out = self._trunk(self.reconstruction, feat)
         out = lrelu(self.pixel_shuffle(self.upconv1(out)))
         out = lrelu(self.pixel_shuffle(self.upconv2(out)))
         out = lrelu(self.conv_hr(out))

@@ -33,6 +33,29 @@
 // The strides keep every fragment read free of bank conflicts: A rows of
 // 36 words, B rows of 72, coefficient rows of S+1 or S+4 words for S
 // slots per chunk. out_prev is added at the store.
+//
+// The bf16 form (blend_matmul_bf16) is what the TPU kernel computes for
+// bf16 operands (dcn_pallas.py:66-75), the form the packed route takes in
+// the bf16 training step: g_cat, cs_cat and wexp_g bf16, out_prev and out
+// float32,
+//
+//     out = out_prev + bf16(g_cat * expand(cs_cat)) @ wexp_g
+//
+// with each blended element rounded to bf16 (round to nearest even: the
+// product of two bf16 values is exact in float32 and rounded once, as the
+// TPU kernel's bf16 multiply rounds it), exact bf16 products and float32
+// sums. Reckoned at EDVR-M inference L1 it moves 0.894 GB (g_cat 664 MB,
+// cs_cat 83 MB, out_prev and out 74 MB each), 0.27 ms at 3.35 TB/s,
+// against 42.5 GFLOP, 0.043 ms at 989 TFLOP/s: bytes bound it. Design: the
+// fp32 kernel's blocks, warps and three-stage cp.async ring with 64-wide
+// chunks (128 bytes of a g_cat row, as the fp32 kernel's 32); each A
+// fragment pair is formed from two bf16 g values and their coefficients
+// and rounded to a bf16x2, the B fragments come by ldmatrix.trans, the
+// products are m16n8k16 bf16 mma.sync into a per-chunk float32 sum that
+// joins the running sum by one round-to-nearest add, as in the fp32 form.
+// No wexp_g split: its bf16 values are the operands. g_cat rows take W % 8
+// == 0 and coefficient rows an even count of slots (whole 4-byte pairs);
+// the wrapper checks both.
 
 #include "mma_common.cuh"
 
@@ -273,6 +296,236 @@ int launch(const float* g, const float* cs, const float* wexp,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 ----------------------------------------------------------------
+
+namespace bf {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BK = 64;        // width of a contraction chunk (128 bytes)
+constexpr int LDA = BK + 8;   // g_cat chunk row: 36 words, A reads conflict-free
+constexpr int LDB = BN + 8;   // wexp_g chunk row: 144 bytes, ldmatrix rows
+                              // on distinct banks
+
+template <int C_PER>
+struct Cfg {
+  static constexpr int S = BK / C_PER;           // slots per chunk, even
+  static constexpr int LDCW = (S / 2) | 1;       // coefficient row, words
+  static constexpr int A_B = BM * LDA * 2;       // bytes of each part
+  static constexpr int B_B = BK * LDB * 2;
+  static constexpr int C_B = BM * LDCW * 4;
+  static constexpr int STAGE_B = A_B + B_B + C_B;  // multiple of 16
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_B;
+};
+
+template <int C_PER>
+__device__ __forceinline__ void load_stage(
+    unsigned char* st, const bf16* __restrict__ g,
+    const uint32_t* __restrict__ cs, const bf16* __restrict__ wexp, int r0,
+    int o0, int k0, int NP, int W, int cout, bool vec_b, int tid) {
+  using C = Cfg<C_PER>;
+  bf16* a_s = reinterpret_cast<bf16*>(st);
+  bf16* b_s = reinterpret_cast<bf16*>(st + C::A_B);
+  uint32_t* c_s = reinterpret_cast<uint32_t*>(st + C::A_B + C::B_B);
+  // g_cat: 128 rows x 8 pieces of 16 bytes (W % 8 == 0: a piece is wholly
+  // in range or out)
+#pragma unroll
+  for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {
+    const int q = tid + i * THREADS;
+    const int row = q / (BK / 8), c8 = q % (BK / 8);
+    const int r = r0 + row, c = k0 + 8 * c8;
+    const bool ok = r < NP && c < W;
+    cp_async16(a_s + row * LDA + 8 * c8, ok ? g + (size_t)r * W + c : g, ok);
+  }
+  // wexp_g: 64 rows x 64 channels; a ragged cout by plain loads
+#pragma unroll
+  for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
+    const int q = tid + i * THREADS;
+    const int kk = q / (BN / 8), o8 = q % (BN / 8);
+    const int k = k0 + kk, o = o0 + 8 * o8;
+    bf16* dst = b_s + kk * LDB + 8 * o8;
+    if (vec_b) {
+      const bool ok = k < W && o < cout;
+      cp_async16(dst, ok ? wexp + (size_t)k * cout + o : wexp, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = k < W && o + e < cout ? wexp[(size_t)k * cout + o + e]
+                                       : __float2bfloat16(0.f);
+    }
+  }
+  // cs_cat: 128 rows x S/2 pairs of slots, 4 bytes each
+  const int CW2 = W / C_PER / 2;
+  const int j0 = k0 / C_PER / 2;
+#pragma unroll
+  for (int i = 0; i < C::S / 2; ++i) {
+    const int q = tid + i * THREADS;
+    const int row = q / (C::S / 2), j = q % (C::S / 2);
+    const int r = r0 + row;
+    const bool ok = r < NP && j0 + j < CW2;
+    cp_async4(c_s + row * C::LDCW + j,
+              ok ? cs + (size_t)r * CW2 + j0 + j : cs, ok);
+  }
+}
+
+// the A fragment register of row `row`, chunk columns k and k + 1 (k
+// even): bf16(g * c) for both, as a bf16x2 (column k in the low half)
+template <int C_PER>
+__device__ __forceinline__ uint32_t blend2(const bf16* a_s,
+                                           const bf16* c_row, int row,
+                                           int k) {
+  const __nv_bfloat162 g2 =
+      *reinterpret_cast<const __nv_bfloat162*>(a_s + row * LDA + k);
+  const float c0 = __bfloat162float(c_row[k / C_PER]);
+  const float c1 = __bfloat162float(c_row[(k + 1) / C_PER]);
+  const __nv_bfloat162 p =
+      __floats2bfloat162_rn(__low2float(g2) * c0, __high2float(g2) * c1);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int C_PER>
+__global__ void __launch_bounds__(THREADS, 1)
+blend_matmul_bf16_kernel(const bf16* __restrict__ g,        // (NP, W)
+                         const uint32_t* __restrict__ cs,   // (NP, W / C_PER)
+                         const bf16* __restrict__ wexp,     // (W, cout)
+                         const float* __restrict__ prev,    // (NP, cout)
+                         float* __restrict__ out,           // (NP, cout)
+                         int NP, int W, int cout, bool vec_b, bool vec_out) {
+  using C = Cfg<C_PER>;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+
+  const int r0 = blockIdx.x * BM;
+  const int o0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int wm = (warp >> 1) * 64;  // the warp's rows within the block
+  const int wn = (warp & 1) * 32;   // and channels
+  // ldmatrix.x4.trans: lane l gives row l % 8 of matrix l / 8, the
+  // matrices being (k 0-7, n8 tile), (k 8-15, tile), (k 0-7, tile + 1),
+  // (k 8-15, tile + 1)
+  const int mi = lane >> 3, rr = lane & 7;
+  const int brow = (rr + 8 * (mi & 1)) * LDB + wn + 8 * (mi >> 1);
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = (W + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      load_stage<C_PER>(smem + s * C::STAGE_B, g, cs, wexp, r0, o0, s * BK,
+                        NP, W, cout, vec_b, tid);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // chunk kt has landed
+    __syncthreads();              // and every warp is done with kt - 1
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk)
+      load_stage<C_PER>(smem + (nxt % STAGES) * C::STAGE_B, g, cs, wexp, r0,
+                        o0, nxt * BK, NP, W, cout, vec_b, tid);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (kt % STAGES) * C::STAGE_B;
+    const bf16* a_s = reinterpret_cast<const bf16*>(st);
+    const bf16* b_s = reinterpret_cast<const bf16*>(st + C::A_B);
+    const bf16* c_s = reinterpret_cast<const bf16*>(st + C::A_B + C::B_B);
+    // the chunk's sum, apart (the tensor cores truncate their float32
+    // sums), joined to the running sum by one float32 add
+    float part[4][4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      // A: the blended, rounded g_cat pairs of the warp's four m16 tiles
+      uint32_t a[4][4];
+      const int k1 = kk + 2 * q, k2 = k1 + 8;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r1 = wm + 16 * i + gq, r2 = r1 + 8;
+        const bf16* c1 = c_s + 2 * r1 * C::LDCW;
+        const bf16* c2 = c_s + 2 * r2 * C::LDCW;
+        a[i][0] = blend2<C_PER>(a_s, c1, r1, k1);
+        a[i][1] = blend2<C_PER>(a_s, c2, r2, k1);
+        a[i][2] = blend2<C_PER>(a_s, c1, r1, k2);
+        a[i][3] = blend2<C_PER>(a_s, c2, r2, k2);
+      }
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t bb[4];  // the n8 tiles 2 jp and 2 jp + 1
+        ldsm_x4_trans(bb, b_s + brow + kk * LDB + 16 * jp);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_bf16(part[i][2 * jp], a[i], bb);
+          mma_bf16(part[i][2 * jp + 1], a[i], bb + 2);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+
+  // epilogue: out = out_prev + acc, two neighbouring channels a lane
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + wm + 16 * i + gq + 8 * h;
+      if (r >= NP) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = o0 + wn + 8 * j + 2 * q;
+        const size_t at = (size_t)r * cout + o;
+        const float x0 = acc[i][j][2 * h], x1 = acc[i][j][2 * h + 1];
+        if (vec_out && o + 1 < cout) {
+          const float2 p = *reinterpret_cast<const float2*>(prev + at);
+          *reinterpret_cast<float2*>(out + at) = make_float2(p.x + x0,
+                                                             p.y + x1);
+        } else {
+          if (o < cout) out[at] = prev[at] + x0;
+          if (o + 1 < cout) out[at + 1] = prev[at + 1] + x1;
+        }
+      }
+    }
+  }
+}
+
+template <int C_PER>
+int launch(const bf16* g, const uint32_t* cs, const bf16* wexp,
+           const float* prev, float* out, int NP, int W, int cout,
+           cudaStream_t stream) {
+  using C = Cfg<C_PER>;
+  auto kernel = blend_matmul_bf16_kernel<C_PER>;
+  int e = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (e) return e;
+  const bool vec_b = cout % 8 == 0 && (uintptr_t)wexp % 16 == 0;
+  const bool vec_out = cout % 2 == 0 && (uintptr_t)prev % 8 == 0 &&
+                       (uintptr_t)out % 8 == 0;
+  const dim3 grid((NP + BM - 1) / BM, (cout + BN - 1) / BN);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(g, cs, wexp, prev, out, NP, W,
+                                              cout, vec_b, vec_out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Pointers are device pointers
@@ -295,6 +548,36 @@ extern "C" int blend_matmul_f32(const void* g, const void* cs,
 #define BLEND_CASE(C)                                                  \
   case C:                                                              \
     return launch<C>(gf, cf, wf, pf, of, NP, W, cout, st);
+  switch (c_per) {
+    BLEND_CASE(1)
+    BLEND_CASE(2)
+    BLEND_CASE(4)
+    BLEND_CASE(8)
+    BLEND_CASE(16)
+    BLEND_CASE(32)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef BLEND_CASE
+}
+
+// The bf16 form: g, cs and wexp bf16 (g 16-byte and cs 4-byte aligned),
+// prev and out float32. The caller also checks W % 8 == 0 and an even
+// W / c_per. Same return values as blend_matmul_f32.
+extern "C" int blend_matmul_bf16(const void* g, const void* cs,
+                                 const void* wexp, const void* prev,
+                                 void* out, int NP, int W, int cout,
+                                 int c_per, void* stream) {
+  if (NP == 0 || cout == 0) return 0;
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  const auto* cb = static_cast<const uint32_t*>(cs);
+  const auto* wb = static_cast<const __nv_bfloat16*>(wexp);
+  const auto* pf = static_cast<const float*>(prev);
+  auto* of = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+#define BLEND_CASE(C)                                                  \
+  case C:                                                              \
+    return bf::launch<C>(gb, cb, wb, pf, of, NP, W, cout, st);
   switch (c_per) {
     BLEND_CASE(1)
     BLEND_CASE(2)

@@ -43,12 +43,14 @@ SIGNATURES = {
     'dcn_bwd_bf16': ('dcn_bwd_bf16', _BWD),
     'row_gather': ('row_gather_f32', [_P] * 4 + [_I] * 3 + [_P]),
     'blend_matmul': ('blend_matmul_f32', [_P] * 5 + [_I] * 4 + [_P]),
+    'blend_matmul_bf16': ('blend_matmul_bf16', [_P] * 5 + [_I] * 4 + [_P]),
 }
 # the source in csrc/ that defines each entry
 SOURCE = {'dcn_fwd': 'dcn_fwd', 'dcn_fwd_bf16': 'dcn_fwd',
           'dcn_fwd_ablate_f32': 'dcn_fwd', 'dcn_fwd_ablate_bf16': 'dcn_fwd',
           'dcn_bwd': 'dcn_bwd', 'dcn_bwd_bf16': 'dcn_bwd',
-          'row_gather': 'row_gather', 'blend_matmul': 'blend_matmul'}
+          'row_gather': 'row_gather', 'blend_matmul': 'blend_matmul',
+          'blend_matmul_bf16': 'blend_matmul'}
 SOURCES = sorted(set(SOURCE.values()))
 
 # the variants of the dcn_fwd_ablate_* entries, in the order of

@@ -29,7 +29,13 @@ instead (:func:`_mdcn_packed`, the gather branch of
 (``ops/gather.py``, ``csrc/row_gather.cu``) and one blend GEMM
 (``ops/dcn_blend.py``, ``csrc/blend_matmul.cu``) per deformable group, on
 either device; on a CUDA tensor it never launches ``dcn_fwd``/``dcn_bwd``.
-It is float32 only and raises on bfloat16 (ROADMAP B.3).
+In bfloat16 it takes the JAX route's bf16 rounding points and the blend
+kernel's bf16 form (``blend_matmul_bf16``).
+
+``EDVR_TPU_DCN_QUANT=int|half|quarter``, the JAX package's inference knob
+(``edvr_tpu/ops/dcn.py:445-455``), rounds every offset to a 1, 1/2 or 1/4
+px grid before either route or the plain version runs (half to even, as
+``jnp.round``); its gradient through the rounding is zero.
 """
 
 from __future__ import annotations
@@ -141,7 +147,7 @@ def modulated_deform_conv_plain(x, offset, mask, weight, bias=None,
 def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
                  groups, dg):
     """The packed-tile DCNv2 (``edvr_tpu/ops/dcn.py:560-836``, its gather
-    branch with the blend kernel), NCHW in and out, float32.
+    branch with the blend kernel), NCHW in and out, float32 or bfloat16.
 
     Each group's input plane is re-laid into overlapping tiles of 2 rows x
     PX pixels x c_per channels (``lanes`` = 2*PX*c_per, 128 when 2*c_per
@@ -152,11 +158,13 @@ def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
     zero boundary. Per deformable group, one row gather fetches the tiles of
     all K taps as ``g_cat`` (NP, K*lanes) and one blend GEMM contracts them
     with the tap weights tiled over the slots.
+
+    The element type ``etype`` is x's (JAX's ``etype`` for a bf16 input,
+    ``:590-599``): the tile table, the tiled weights, the fractions, the
+    validities, the mask and the slot coefficients are in it, each product
+    rounded as JAX rounds it; the sample coordinates are float32 at least,
+    the accumulator float32, cast to x's dtype before the bias is added.
     """
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            'the packed DCN route (EDVR_TPU_DCN_PALLAS=1) is float32 only; '
-            'its bf16 blend is not ported yet (ROADMAP B.3)')
     n, cin, h, w = x.shape
     cout, cin_g, kh, kw = weight.shape
     K = kh * kw
@@ -169,7 +177,8 @@ def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
     ow = _out_size(w, kw, stride, padding, dilation)
     P = oh * ow
     NP = n * P
-    dt, dev = x.dtype, x.device
+    dt, dev = x.dtype, x.device  # dt is JAX's etype
+    ct = torch.promote_types(offset.dtype, torch.float32)
 
     # tile table (:706-728): tile t holds columns t*SX .. t*SX+PX-1 (zero
     # beyond w) of an image row (r=0) and of the row below it (r=1, zero
@@ -187,24 +196,24 @@ def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
         torch.block_diag(*wk[k].split(cout // groups, dim=1))
         for k in range(K)])
     wexp = wfull.view(K, dg, 1, c_per, cout).expand(
-        K, dg, 2 * PX, c_per, cout).reshape(K, dg, lanes, cout)
+        K, dg, 2 * PX, c_per, cout).reshape(K, dg, lanes, cout).to(dt)
 
-    # per tap (:729-805): sample coordinates, the tile row and the slot
-    # coefficients, all groups and taps at once as (n, dg, K, P)
-    base_y = (torch.arange(oh, device=dev, dtype=dt) * stride
+    # per tap (:729-805): sample coordinates (in ct), the tile row and the
+    # slot coefficients (in dt), all groups and taps at once as (n, dg, K, P)
+    base_y = (torch.arange(oh, device=dev, dtype=ct) * stride
               - padding).view(oh, 1).expand(oh, ow).reshape(1, 1, 1, P)
-    base_x = (torch.arange(ow, device=dev, dtype=dt) * stride
+    base_x = (torch.arange(ow, device=dev, dtype=ct) * stride
               - padding).view(1, ow).expand(oh, ow).reshape(1, 1, 1, P)
     taps = torch.arange(K, device=dev)
-    tap_y = ((taps // kw) * dilation).to(dt).view(1, 1, K, 1)
-    tap_x = ((taps % kw) * dilation).to(dt).view(1, 1, K, 1)
-    off = offset.reshape(n, dg, K, 2, P)
+    tap_y = ((taps // kw) * dilation).to(ct).view(1, 1, K, 1)
+    tap_x = ((taps % kw) * dilation).to(ct).view(1, 1, K, 1)
+    off = offset.reshape(n, dg, K, 2, P).to(ct)
     cy = (base_y + tap_y) + off[:, :, :, 0]
     cx = (base_x + tap_x) + off[:, :, :, 1]
     y0 = torch.floor(cy)
     x0 = torch.floor(cx)
-    fy = cy - y0
-    fx = cx - x0
+    fy = (cy - y0).to(dt)
+    fx = (cx - x0).to(dt)
     # validity is decided on the float corner; the corners are clamped just
     # beyond the image before the integer conversion, which changes no
     # valid corner, so any offset magnitude stays exact
@@ -222,7 +231,7 @@ def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
     row = ty * tiles_x + tx + row_base.view(n, dg, 1, 1)
     ry0 = (y0i - ty).unsqueeze(-1)
     px0 = (x0i - SX * tx).unsqueeze(-1)
-    mg = mask.reshape(n, dg, K, P)
+    mg = mask.reshape(n, dg, K, P).to(dt)
     zero = torch.zeros((), device=dev, dtype=dt)
     slot_r = torch.arange(2, device=dev, dtype=torch.int32)
     slot_p = torch.arange(PX, device=dev, dtype=torch.int32)
@@ -238,7 +247,7 @@ def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
     # per deformable group: one gather over all K taps, laid out (NP, K)
     # so that the (NP*K, lanes) rows read as (NP, K*lanes), the
     # lane-concatenation of the taps; one blend GEMM into the accumulator
-    out = x.new_zeros(NP, cout)
+    out = x.new_zeros(NP, cout, dtype=torch.float32)
     for g in range(dg):
         idx = row[:, g].permute(0, 2, 1).reshape(-1)
         g_cat = row_gather(tab, idx).view(NP, K * lanes)
@@ -248,7 +257,7 @@ def _mdcn_packed(x, offset, mask, weight, bias, stride, padding, dilation,
         wexp_g = wexp[:, g].reshape(K * lanes, cout)
         out = blend_matmul_group(g_cat, cs_cat, wexp_g, out, c_per)
 
-    out = out.view(n, oh, ow, cout).permute(0, 3, 1, 2).contiguous()
+    out = out.view(n, oh, ow, cout).to(dt).permute(0, 3, 1, 2).contiguous()
     if bias is not None:
         out = out + bias.view(1, -1, 1, 1)
     return out
@@ -455,6 +464,11 @@ class ModulatedDeformConvFunction(torch.autograd.Function):
         return dx, d_offset, d_mask, d_weight, d_bias, None, None, None, None
 
 
+# EDVR_TPU_DCN_QUANT's values and the grid each rounds the offsets to,
+# in steps of 1 / denominator px
+DCN_QUANT = {'int': 1.0, 'half': 2.0, 'quarter': 4.0}
+
+
 def modulated_deform_conv(x, offset, mask, weight, bias=None, stride=1,
                           padding=0, dilation=1, groups=1,
                           deformable_groups=1):
@@ -466,11 +480,17 @@ def modulated_deform_conv(x, offset, mask, weight, bias=None, stride=1,
     blend kernels on a CUDA tensor and their plain versions on a CPU one.
     Otherwise a CPU tensor takes :func:`modulated_deform_conv_plain` under
     plain autograd, and a CUDA tensor :class:`ModulatedDeformConvFunction`,
-    whose forward and backward launch the kernels or raise.
+    whose forward and backward launch the kernels or raise. With
+    ``EDVR_TPU_DCN_QUANT`` set, the offsets are first rounded to its grid
+    (:data:`DCN_QUANT`; another value raises ``KeyError``).
     """
     if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'modulated_deform_conv: unsupported device '
                          f'{x.device}')
+    quant = os.environ.get('EDVR_TPU_DCN_QUANT', '')
+    if quant:
+        denom = DCN_QUANT[quant]
+        offset = torch.round(offset * denom) / denom
     c_per = x.shape[1] // deformable_groups
     if (os.environ.get('EDVR_TPU_DCN_PALLAS') == '1'
             and 128 // (2 * c_per) >= 2):

@@ -4,11 +4,13 @@ DCN route.
 It is the gather that ``edvr_tpu/ops/dcn.py::_mdcn_packed`` does with
 ``jnp.take(tab, row, axis=0)`` and that
 ``scripts/dev/probe_mosaic_gather.py`` probes as an in-kernel Mosaic gather:
-a float32 (R, L) table of packed 128-lane tiles gathered at data-dependent
-rows. On a CUDA tensor it is the hand-written kernel
-``edvr_tpu_torch/csrc/row_gather.cu``; on a CPU tensor its plain version.
-The gradient is a scatter-add into a zero table, as JAX differentiates the
-take through an XLA scatter outside any Pallas kernel.
+a float32 or bfloat16 (R, L) table of packed 128-lane tiles gathered at
+data-dependent rows. On a CUDA tensor it is the hand-written kernel
+``edvr_tpu_torch/csrc/row_gather.cu``, which copies 32-bit words: a bf16
+table is gathered as the words that hold its pairs of lanes, a bit copy.
+On a CPU tensor its plain version. The gradient is a scatter-add into a
+zero table, as JAX differentiates the take through an XLA scatter outside
+any Pallas kernel; it is summed in float32 and cast to the table's dtype.
 """
 
 from __future__ import annotations
@@ -24,39 +26,45 @@ def row_gather_plain(table, idx):
 
 
 def row_gather_cuda(table, idx):
-    """``table[idx]`` through the CUDA kernel (float32 (R, L) table, int32
-    (G,) indices, no autograd). Raises on any input the kernel does not
-    take, and ``IndexError`` when an index lies outside [0, R): the kernel
+    """``table[idx]`` through the CUDA kernel (float32 (R, L) table, or
+    bfloat16 with an even L, gathered as float32 words; int32 (G,)
+    indices; no autograd). Raises on any input the kernel does not take,
+    and ``IndexError`` when an index lies outside [0, R): the kernel
     raises an error flag, which this wrapper reads (a synchronisation)."""
     for name, t in (('table', table), ('idx', idx)):
         if not t.is_cuda or t.device != table.device:
             raise ValueError(f'row_gather: {name} must lie on '
                              f'{table.device} (a CUDA device), got '
                              f'{t.device}')
-    if table.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f'row_gather: needs a float32 table and int32 '
-                        f'indices, got {table.dtype} and {idx.dtype}')
+    if (table.dtype not in (torch.float32, torch.bfloat16)
+            or idx.dtype != torch.int32):
+        raise TypeError(f'row_gather: needs a float32 or bfloat16 table and '
+                        f'int32 indices, got {table.dtype} and {idx.dtype}')
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f'row_gather: table must be 2-D and idx 1-D, got '
                          f'{tuple(table.shape)} and {tuple(idx.shape)}')
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError('row_gather: table and idx must be contiguous')
-    (R, L), G = table.shape, idx.shape[0]
+    if table.dtype == torch.bfloat16 and table.shape[1] % 2:
+        raise ValueError('row_gather: a bfloat16 table needs an even row '
+                         'length (pairs of lanes in 32-bit words)')
+    words = table.view(torch.float32)  # a bf16 row as its 32-bit words
+    (R, L), G = words.shape, idx.shape[0]
     if table.data_ptr() % 16:
         raise ValueError('row_gather: the table must be 16-byte aligned')
 
     fn = native.load('row_gather')
-    out = torch.empty(G, L, device=table.device, dtype=table.dtype)
+    out = torch.empty(G, L, device=table.device, dtype=torch.float32)
     bad = torch.zeros(1, device=table.device, dtype=torch.int32)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        err = fn(words.data_ptr(), idx.data_ptr(), out.data_ptr(),
                  bad.data_ptr(), G, R, L, stream)
     native.check('row_gather', err)
     native.LAUNCHES['row_gather'] += 1
     if bad.item():
         raise IndexError(f'row_gather: an index lies outside [0, {R})')
-    return out
+    return out.view(table.dtype)
 
 
 class RowGatherFunction(torch.autograd.Function):
@@ -77,11 +85,12 @@ class RowGatherFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         idx, = ctx.saved_tensors
-        dtable = dout.new_zeros(ctx.rows, dout.shape[1])
-        return dtable.index_add_(0, idx, dout), None
+        dtable = dout.new_zeros(ctx.rows, dout.shape[1], dtype=torch.float32)
+        dtable.index_add_(0, idx, dout.float())
+        return dtable.to(dout.dtype), None
 
 
 def row_gather(table, idx):
-    """Differentiable ``table[idx]`` (float32 (R, L) table, int32 indices),
-    dispatched on the device of ``table``."""
+    """Differentiable ``table[idx]`` (float32 or bfloat16 (R, L) table,
+    int32 indices), dispatched on the device of ``table``."""
     return RowGatherFunction.apply(table, idx)

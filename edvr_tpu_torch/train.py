@@ -11,7 +11,9 @@ validation is fp32. The loop is the reference's: epochs over an enlarged
 sampler, message logging at ``print_freq``, checkpoints at
 ``save_checkpoint_freq``, validation at ``val_freq``, resume from
 ``path.resume_state``. ``parse_options`` is shared with the test CLI and
-turns TF32 off for both.
+turns TF32 off for both. Before its first convolution the run takes
+cuDNN's algorithm choice by the network it trains
+(:func:`use_train_cudnn_policy`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import math
+import os
 import random
 import time
 
@@ -73,6 +76,35 @@ def parse_options(is_train=True, args=None):
     return opt
 
 
+def train_cudnn_env(net_opt):
+    """cuDNN's algorithm choice for training ``net_opt``'s network, as the
+    environment to set before the process's first convolution.
+
+    EDVR-L (an EDVR of 128 features or more) takes the test CLI's
+    (``test.INFERENCE_CUDNN_ENV``) for its whole run: under PyTorch's
+    default (cuDNN v8 API heuristics, TF32 off) some of its fp32
+    convolutions take FFT algorithms with ~18 GB workspaces, which made its
+    validation window (run every ``val_freq``) ~4x slower at ~10x the
+    memory and its fp32 step ~3x slower; either variable alone keeps the
+    FFT choice. The capped choice costs its bf16 step ~2x. EDVR-M and every
+    other network keep the default, under which EDVR-M's bf16 step is ~2x
+    faster and its fp32 step level. The readings are in PERF.md (``python
+    -m edvr_tpu_torch.tools.train_edvr_l``)."""
+    from edvr_tpu_torch.test import INFERENCE_CUDNN_ENV
+    if net_opt.get('type') == 'EDVR' and net_opt.get('num_feat', 64) >= 128:
+        return dict(INFERENCE_CUDNN_ENV)
+    return {}
+
+
+def use_train_cudnn_policy(opt):
+    """Apply :func:`train_cudnn_env` of ``opt['network_g']`` to this
+    process (values already in the environment are kept); returns it."""
+    env = train_cudnn_env(opt['network_g'])
+    for key, value in env.items():
+        os.environ.setdefault(key, value)
+    return env
+
+
 def create_train_val_dataloader(opt, logger):
     """(reference: train.py:79-125)"""
     train_loader, train_sampler, val_loader = None, None, None
@@ -113,6 +145,7 @@ def create_train_val_dataloader(opt, logger):
 
 def main(args=None):
     opt = parse_options(is_train=True, args=args)
+    cudnn_env = use_train_cudnn_policy(opt)
 
     resume_state = load_resume_state(opt)
     if resume_state is None:
@@ -120,6 +153,8 @@ def main(args=None):
     else:
         check_resume(opt, resume_state['iter'])
     logger = init_loggers(opt)
+    logger.info(f'cuDNN algorithm choice: '
+                f'{cudnn_env or "PyTorch default"}')
 
     train_loader, train_sampler, val_loader, _, total_iters = \
         create_train_val_dataloader(opt, logger)

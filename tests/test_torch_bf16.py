@@ -167,13 +167,30 @@ def test_fp32_path_has_no_bf16_rounding():
     assert _rel(bf16.float(), f64) > 1e-4
 
 
-def test_packed_route_refuses_bf16(monkeypatch):
-    """EDVR_TPU_DCN_PALLAS=1 (the packed route) is float32 only: bf16
-    raises, naming ROADMAP B.3, rather than run another function."""
-    monkeypatch.setenv('EDVR_TPU_DCN_PALLAS', '1')
+def test_packed_route_refuses_bf16():
+    """The packed route's blend refuses bf16 operands mixed with float32
+    ones, in either position, rather than cast them to one dtype."""
+    from edvr_tpu_torch.ops import dcn_blend
+    g = torch.zeros(4, 16, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match='one dtype'):
+        dcn_blend.blend_matmul_group(g, torch.zeros(4, 2), g.t().float(),
+                                     torch.zeros(4, 16), 8)
+    with pytest.raises(TypeError, match='one dtype'):
+        dcn_blend.blend_matmul_group(g.float(), torch.zeros(4, 2),
+                                     g.t().contiguous(), torch.zeros(4, 16),
+                                     8)
+
+
+def test_packed_route_runs_bf16(monkeypatch):
+    """EDVR_TPU_DCN_PALLAS=1 (the packed route) runs bf16 through the bf16
+    blend (tests/test_torch_packed_bf16.py holds it against JAX's) and
+    returns bf16 within FWD_TOL of the bf16 direct route."""
     args = _port_args(_bf16(_case(0, n=1, h=8, w=8, cin=16, cout=16, dg=2)))
-    with pytest.raises(NotImplementedError, match='B.3'):
-        dcn.modulated_deform_conv(*args, None, 1, 1, 1, 1, 2)
+    direct = dcn.modulated_deform_conv(*args, None, 1, 1, 1, 1, 2)
+    monkeypatch.setenv('EDVR_TPU_DCN_PALLAS', '1')
+    packed = dcn.modulated_deform_conv(*args, None, 1, 1, 1, 1, 2)
+    assert packed.dtype == torch.bfloat16
+    assert _rel(packed.float(), direct.float()) <= FWD_TOL
 
 
 class _DtypeLog(TorchDispatchMode):

@@ -65,6 +65,58 @@ def _case(seed, n, cin, cout, h, w, dg, k=3, stride=1, padding=1,
                    deformable_groups=dg)
 
 
+def _blend_bf16_args(seed, NP, K, lanes, c_per, cout):
+    """bf16 g_cat, cs_cat (coefficients in [0, 1]), wexp_g; f32 out_prev."""
+    gen = torch.Generator().manual_seed(seed)
+    bf16 = torch.bfloat16
+    return [torch.randn(NP, K * lanes, generator=gen).to('cuda', bf16),
+            torch.rand(NP, K * lanes // c_per, generator=gen).to('cuda', bf16),
+            (torch.randn(K * lanes, cout, generator=gen) * 0.1).to('cuda',
+                                                                    bf16),
+            torch.randn(NP, cout, generator=gen).to('cuda')]
+
+
+@pytest.mark.parametrize('NP,K,lanes,c_per,cout', [
+    (1000 + 13, 9, 128, 8, 64),    # EDVR-M, ragged rows
+    (300, 9, 128, 16, 128),        # EDVR-L
+    (300, 9, 128, 16, 70),         # ragged channels: wexp_g by plain loads
+    (70, 3, 32, 4, 24),            # a width of 96: a ragged 64-wide chunk
+    *[(777, K, 128, c_per, 64) for c_per in (1, 2, 4, 8, 16, 32)
+      for K in (1, 9)],
+])
+def test_blend_bf16_kernel_matches_plain(cuda, NP, K, lanes, c_per, cout):
+    """blend_matmul_bf16 against its plain version (the bf16 products,
+    their exact values contracted in float32): one launch under its own
+    count, a float32 result within 1e-4 of max|out| (the same bf16
+    products summed in another order)."""
+    from edvr_tpu_torch.ops import dcn_blend
+    args = _blend_bf16_args(NP, NP, K, lanes, c_per, cout)
+    before = dict(dcn.LAUNCHES)
+    got = dcn_blend.blend_matmul_cuda(*args, c_per)
+    want = dcn_blend.blend_matmul_group_plain(*args, c_per)
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == _launches(
+        blend_matmul_bf16=1)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_blend_bf16_wrapper_refuses(cuda):
+    from edvr_tpu_torch.ops import dcn_blend
+    g, cs, w, prev = _blend_bf16_args(0, 64, 9, 128, 8, 64)
+    for bad in ((g.float(), cs, w), (g, cs.float(), w), (g, cs, w.float())):
+        with pytest.raises(TypeError, match='one dtype'):
+            dcn_blend.blend_matmul_cuda(*bad, prev, 8)
+    with pytest.raises(TypeError, match='out_prev'):
+        dcn_blend.blend_matmul_cuda(g, cs, w, prev.bfloat16(), 8)
+    with pytest.raises(ValueError, match='multiple of 8'):
+        dcn_blend.blend_matmul_cuda(g[:, :1148].contiguous(), cs[:, :1].
+                                    contiguous(), w[:1148], prev, 8)
+    with pytest.raises(ValueError, match='even count'):  # 1 slot of 8
+        dcn_blend.blend_matmul_cuda(g[:, :8].contiguous(),
+                                    cs[:, :1].contiguous(), w[:8], prev, 8)
+
+
 @pytest.mark.parametrize('geo', [
     dict(n=5, cin=64, cout=64, h=45, w=80, dg=8, far=0.05),   # EDVR-M L3
     dict(n=2, cin=64, cout=64, h=33, w=47, dg=8, far=0.5),
@@ -397,6 +449,25 @@ def test_row_gather_kernel_matches_index_select(cuda, R, L, G):
     torch.cuda.synchronize()
     assert dcn.LAUNCHES['row_gather'] == before + 1
     assert torch.equal(got, table.index_select(0, idx))  # bitwise
+
+
+def test_row_gather_kernel_bf16_table(cuda):
+    """A bf16 table (the packed route's bf16 step) is gathered as the
+    32-bit words holding its pairs of lanes: bitwise index_select, one
+    launch; an odd row length refuses."""
+    from edvr_tpu_torch.ops import gather
+    gen = torch.Generator().manual_seed(5)
+    table = torch.randn(1000, 128, generator=gen).to(cuda, torch.bfloat16)
+    idx = torch.randint(0, 1000, (8003,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    before = dcn.LAUNCHES['row_gather']
+    got = gather.row_gather_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert dcn.LAUNCHES['row_gather'] == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, table.index_select(0, idx))
+    with pytest.raises(ValueError, match='even'):
+        gather.row_gather_cuda(table[:, :127].contiguous(), idx)
 
 
 def test_row_gather_kernel_refuses(cuda):
@@ -774,8 +845,8 @@ def test_bf16_autograd_function_on_cuda(cuda):
 
 
 def test_bf16_refusals(cuda, monkeypatch):
-    """Mixed dtypes and other dtypes raise; the packed route raises on
-    bf16 (its bf16 blend is ROADMAP B.3) and launches nothing."""
+    """Mixed dtypes and other dtypes raise; the packed route takes bf16
+    (one gather and one bf16 blend per group, no DCN kernel)."""
     args, kw = _bf16_case(14, n=1, cin=16, cout=16, h=8, w=8, dg=2)
     x, off, mask, weight, bias = args
     with pytest.raises(TypeError, match='one dtype'):
@@ -792,9 +863,11 @@ def test_bf16_refusals(cuda, monkeypatch):
         dcn.modulated_deform_conv(x, off, mask, weight.float(), bias, **kw)
     monkeypatch.setenv('EDVR_TPU_DCN_PALLAS', '1')
     before = dict(dcn.LAUNCHES)
-    with pytest.raises(NotImplementedError, match='B.3'):
-        dcn.modulated_deform_conv(x, off, mask, weight, bias, **kw)
-    assert dcn.LAUNCHES == before
+    out = dcn.modulated_deform_conv(x, off, mask, weight, bias, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == _launches(
+        row_gather=2, blend_matmul_bf16=2)
 
 
 ABLATE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}

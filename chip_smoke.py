@@ -52,13 +52,21 @@ one flushed JSON line with its ``seconds``:
    (and whose floor differs between card and CPU) counted per DCN call;
 8. kernel_blend_<level>: the packed route's blend GEMM kernel against its
    plain version on one deformable group at the inference shapes (NP =
-   5 x P, width 9 x 128, cout 64), and at a ragged NP; times beside the
-   bound (3xTF32 operations vs bytes, and the fp32-pipe bound beside it),
-   the plain version and the GEMM alone (``torch.addmm``);
+   5 x P, width 9 x 128, cout 64), and at a ragged NP; times (the
+   wrapper's by CUDA events, the kernel's device time from
+   torch.profiler) beside the bound (3xTF32 operations vs bytes, and the
+   fp32-pipe bound beside it), the plain version and the GEMM alone
+   (``torch.addmm``, by CUDA events and device time);
 9. kernel_gather_<shape>: the row-gather kernel, bitwise against
    ``index_select``, at the three shapes of
    ``scripts/dev/probe_mosaic_gather.py`` (3600/14400/57600 rows of 128,
-   G = 4096 and G = 8 x rows) and at the packed route's L1 shape;
+   G = 4096 and G = 8 x rows), at the packed route's L1 shape and at the
+   fp32 packed training step's own shapes (train_<level>: n 20, 64/32/16
+   px); times and device times beside ``index_select``'s, as the blend's;
+   then packed_no_sync: the packed route's forward and backward (fp32 and
+   bf16, the training L1 shape) under
+   ``torch.cuda.set_sync_debug_mode('error')``, which raises on any host
+   synchronisation, with 8 gathers and 8 blends each;
 10. packed_main_path: a seeded 6-frame 180x320 clip restored through
     ``create_model`` and ``_clip_validation`` on the packed route (8 gathers
     and 8 blends per DCN call, no dcn_fwd), one window against the direct
@@ -183,6 +191,9 @@ sys.path.insert(0, ROOT)
 # are the ablation tool's, so every kernel is bounded against one table
 from edvr_tpu_torch.tools.ablate_dcn import (  # noqa: E402
     PEAK_BYTES, PEAK_OPS, PEAK_TF32, cuda_ms)
+# each CUDA kernel's device time per call, from torch.profiler
+from edvr_tpu_torch.tools.ab_kernels import (  # noqa: E402
+    kernel_ms_per_call)
 # seeded clips, PNG frames and a REDS-layout tree of them
 from edvr_tpu_torch.tools.synthetic import (  # noqa: E402
     seeded_clip, write_png, write_reds_tree)
@@ -797,14 +808,28 @@ def dcn_fwd_check(args, tag, ph):
     return result
 
 
+def device_ms_per_call(fn, tries=3):
+    """The device ms per call of all the CUDA kernels ``fn`` launches, from
+    ``torch.profiler`` (10 calls after a warm one); a trace with no device
+    time is taken again, up to ``tries`` times, then fails."""
+    for _ in range(tries):
+        ms = sum(kernel_ms_per_call(fn).values())
+        if ms > 0:
+            return ms
+    raise AssertionError(f'torch.profiler recorded no device time in '
+                         f'{tries} traces')
+
+
 def blend_check(cases, c_per, tag, ph):
     """The blend GEMM kernel against its plain version on each case of
     (g_cat, cs_cat, wexp_g, out_prev) (fails above BLEND_TOL of max|out|,
-    BLEND_BF16_TOL in bf16), then ms of the first case by CUDA events
-    beside the plain version, the bound and ``torch.addmm`` (the GEMM
-    alone; in bf16 on the bf16 strip, cuBLAS accumulating in float32), and
-    in bf16 the fp32 kernel on the same values. Returns the readings and
-    puts them in the phase's line."""
+    BLEND_BF16_TOL in bf16), then ms of the first case by CUDA events (the
+    wrapper's, host time included) and the kernel's device time from
+    ``torch.profiler``, beside the plain version, the bound and
+    ``torch.addmm`` (the GEMM alone; in bf16 on the bf16 strip, cuBLAS
+    accumulating in float32; by CUDA events and device time), and in bf16
+    the fp32 kernel on the same values. Returns the readings and puts them
+    in the phase's line."""
     from edvr_tpu_torch.ops import dcn_blend
     low = cases[''][0].dtype == torch.bfloat16
     tol = BLEND_BF16_TOL if low else BLEND_TOL
@@ -825,11 +850,15 @@ def blend_check(cases, c_per, tag, ph):
             del got, want
         args = cases['']
         ms = cuda_ms(lambda: dcn_blend.blend_matmul_cuda(*args, c_per), 20)
+        device_ms = device_ms_per_call(
+            lambda: dcn_blend.blend_matmul_cuda(*args, c_per))
         plain_ms = cuda_ms(lambda: dcn_blend.blend_matmul_group_plain(
             *args, c_per), 5)
         blended = args[0] * args[1].repeat_interleave(c_per, 1)
         prev = args[3].to(blended.dtype)
         library_ms = cuda_ms(lambda: torch.addmm(prev, blended, args[2]), 20)
+        library_device_ms = device_ms_per_call(
+            lambda: torch.addmm(prev, blended, args[2]))
         del blended, prev
         extra = {}
         if low:
@@ -840,9 +869,10 @@ def blend_check(cases, c_per, tag, ph):
     bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = blend_bound(*args)
     result = dict(max_abs_err=max(v for k, v in errs.items()
                                   if k.startswith('err')),
-                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                  bound_by=bound_by, bound_ms_fp32_pipe=fp32_pipe_ms,
-                  library_ms=library_ms, **extra)
+                  ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  bound_ms_fp32_pipe=fp32_pipe_ms, library_ms=library_ms,
+                  library_device_ms=library_device_ms, **extra)
     library = ('torch.addmm(out_prev, blended, wexp_g): the GEMM alone, '
                'the blend formed beforehand')
     if low:
@@ -899,9 +929,10 @@ def bwd_check(args, tol, tag, gen):
 
 def gather_check(table, rows, tag, ph):
     """The row-gather kernel, bitwise against ``index_select``, then ms by
-    CUDA events beside the plain version, the bound and
-    ``torch.index_select``. Returns the readings and puts them in the
-    phase's line."""
+    CUDA events (the wrapper's, host time included) and the kernel's
+    device time from ``torch.profiler``, beside the plain version, the
+    bound and ``torch.index_select`` (by CUDA events and device time).
+    Returns the readings and puts them in the phase's line."""
     from edvr_tpu_torch.ops import gather
     with torch.no_grad():
         got = gather.row_gather_cuda(table, rows)
@@ -913,12 +944,16 @@ def gather_check(table, rows, tag, ph):
         err = (got - want).abs().max().item()
         del got, want
         ms = cuda_ms(lambda: gather.row_gather_cuda(table, rows), 20)
+        device_ms = device_ms_per_call(
+            lambda: gather.row_gather_cuda(table, rows))
         plain_ms = cuda_ms(lambda: gather.row_gather_plain(table, rows), 20)
         library_ms = cuda_ms(lambda: torch.index_select(table, 0, rows), 20)
+        library_device_ms = device_ms_per_call(
+            lambda: torch.index_select(table, 0, rows))
     bound_ms, bound_by, nbytes, rows_read = gather_bound(table, rows)
-    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                  bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=library_ms)
+    result = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=library_ms, library_device_ms=library_device_ms)
     ph.info.update(table=list(table.shape), gathers=rows.shape[0],
                    distinct_rows=rows_read, bitwise_equal=True,
                    mbytes=nbytes / 1e6, **result,
@@ -1348,7 +1383,7 @@ def main():
     from edvr_tpu_torch.archs.edvr_arch import (clip_window_indices,
                                                 make_clip_restore_fn)
     from edvr_tpu_torch.models import create_model
-    from edvr_tpu_torch.ops import dcn
+    from edvr_tpu_torch.ops import dcn, dcn_blend
     from edvr_tpu_torch.utils.options import parse_dict
 
     # fp32 everywhere: the reference is compared at full float32
@@ -1637,6 +1672,54 @@ def main():
         with Phase(f'kernel_gather_{tag}') as ph:
             gather_results[tag] = gather_check(table, rows, tag, ph)
     del gather_in, table, rows
+
+    # the row gather of the fp32 packed training step's table, at its own
+    # shapes (EDVR-M, n = TRAIN_N, 64/32/16 px: train_<level>), from a
+    # generator of its own, so the later phases' data stay as they were
+    gather_train_gen = torch.Generator().manual_seed(SEED + 12)
+    for level, (h, w) in TRAIN_LEVELS.items():
+        with Phase(f'kernel_gather_train_{level}') as ph, torch.no_grad():
+            (table, rows), _ = packed_kernel_inputs(
+                dcn_inputs(h, w, gather_train_gen, n=TRAIN_N))
+            gather_results[f'train_{level}'] = gather_check(
+                table, rows, f'train_{level}', ph)
+            ph.info['card'] = smi
+            del table, rows
+
+    # the packed route's forward and backward, fp32 and bf16, at the
+    # training step's L1 shape, make no host synchronisation:
+    # torch.cuda.set_sync_debug_mode('error') raises on one
+    with Phase('packed_no_sync') as ph, packed_route():
+        sync_gen = torch.Generator().manual_seed(SEED + 13)
+        no_sync_launches = {}
+        for dname, dt in (('fp32', torch.float32),
+                          ('bf16', torch.bfloat16)):
+            leaves = [a.to(dt).requires_grad_() for a in dcn_inputs(
+                *TRAIN_LEVELS['L1'], sync_gen, n=TRAIN_N)]
+            dout = torch.randn(leaves[0].shape, generator=sync_gen).to(
+                'cuda', dt)
+            torch.cuda.synchronize()
+            before = dict(dcn.LAUNCHES)
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                out = dcn.modulated_deform_conv(*leaves, 1, 1, 1, 1, 8)
+                out.backward(dout)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            counts = {k: dcn.LAUNCHES[k] - before[k] for k in before}
+            expect = launch_counts(**{
+                'row_gather': 8, dcn_blend.ENTRIES[dt]: 8})
+            if counts != expect or not all(
+                    torch.isfinite(a.grad.float()).all() for a in leaves):
+                raise AssertionError(f'packed route {dname} under the sync '
+                                     f'check: launches {counts}, expected '
+                                     f'{expect}, or gradients not finite')
+            no_sync_launches[dname] = counts
+            del leaves, dout, out
+        ph.info.update(shape=[TRAIN_N, 64, *TRAIN_LEVELS['L1']], dg=8,
+                       sync_debug_mode='error', launches=no_sync_launches,
+                       card=smi)
 
     T2 = PACKED_T
     lq2, gt2 = lq[:T2].contiguous(), gt[:T2].contiguous()
@@ -2357,8 +2440,11 @@ def main():
                     'library_ms': bl1['library_ms'],
                     'library': 'torch.addmm, the GEMM only',
                     'launches_train': packed_train_launches['blend_matmul']}
+    kernel_blend.update(device_ms=bl1['device_ms'],
+                        library_device_ms=bl1['library_device_ms'])
     for level, r in blend_results.items():
         kernel_blend.update({f'ms_{level}': r['ms'],
+                             f'device_ms_{level}': r['device_ms'],
                              f'plain_ms_{level}': r['plain_ms'],
                              f'bound_ms_{level}': r['bound_ms'],
                              f'bound_ms_fp32_pipe_{level}':
@@ -2379,11 +2465,13 @@ def main():
                      'library_ms': gl1['library_ms'],
                      'library': 'torch.index_select',
                      'launches_train': packed_train_launches['row_gather']}
+    kernel_gather.update(device_ms=gl1['device_ms'],
+                         library_device_ms=gl1['library_device_ms'])
     for tag, r in gather_results.items():
         if tag != 'L1':
-            kernel_gather.update({f'ms_{tag}': r['ms'],
-                                  f'bound_ms_{tag}': r['bound_ms'],
-                                  f'library_ms_{tag}': r['library_ms']})
+            kernel_gather.update({f'{key}_{tag}': r[key] for key in (
+                'ms', 'device_ms', 'bound_ms', 'library_ms',
+                'library_device_ms')})
     kernel['launches_tapshared_train'] = tap_launches['dcn_fwd']
     kernel_bwd['launches_tapshared_train'] = tap_launches['dcn_bwd']
     # EDVR-L: the forward at c_per 16, cout 128 (L_<level>), and the
@@ -2406,7 +2494,8 @@ def main():
             r['max_abs_err'] for r in results_l.values()))
         for level, r in results_l.items():
             entry.update({f'{key}_L_{level}': r[key] for key in (
-                'ms', 'plain_ms', 'bound_ms', 'library_ms')})
+                'ms', 'device_ms', 'plain_ms', 'bound_ms', 'library_ms',
+                'library_device_ms')})
     # the bf16 entries: their main path is the mixed-precision training
     # step (mp_train); ms at inference L1 (forward) and training L1
     # (backward), as the fp32 entries
@@ -2475,21 +2564,25 @@ def main():
             'edvr_tpu/ops/dcn_pallas.py::blend_matmul_group (bf16)',
         'launches': packed_mp_launches['blend_matmul_bf16'],
         'max_abs_err': max(r['max_abs_err'] for r in blend_bf16.values()),
-        'ms': bb1['ms'], 'plain_ms': bb1['plain_ms'],
+        'ms': bb1['ms'], 'device_ms': bb1['device_ms'],
+        'plain_ms': bb1['plain_ms'],
         'bound_ms': bb1['bound_ms'], 'bound_by': bb1['bound_by'],
         'library_ms': bb1['library_ms'],
+        'library_device_ms': bb1['library_device_ms'],
         'library': 'torch.addmm on the bf16 strip, the GEMM only (cuBLAS, '
                    'float32 accumulation)'}
     for level, r in blend_bf16.items():
         kernel_blend_bf16.update({f'{key}_{level}': r[key] for key in (
-            'ms', 'plain_ms', 'bound_ms', 'library_ms', 'fp32_ms')})
+            'ms', 'device_ms', 'plain_ms', 'bound_ms', 'library_ms',
+            'library_device_ms', 'fp32_ms')})
     kernel_gather['launches_packed_mp_train'] = packed_mp_launches[
         'row_gather']
     kernel_gather['max_abs_err'] = max(kernel_gather['max_abs_err'], *(
         r['max_abs_err'] for r in gather_bf16.values()))
     for level, r in gather_bf16.items():
         kernel_gather.update({f'{key}_bf16_{level}': r[key] for key in (
-            'ms', 'plain_ms', 'bound_ms', 'library_ms')})
+            'ms', 'device_ms', 'plain_ms', 'bound_ms', 'library_ms',
+            'library_device_ms')})
     # the ablation variants: their main path is the timing tool's run
     kernels_ablate = [
         {'name': f'dcn_fwd_ablate_{mode}_{dname}', 'route': 'cuda',

@@ -34,6 +34,31 @@ def _up2(x):
                          align_corners=False)
 
 
+def conv_cat(conv, a, b):
+    """``conv(torch.cat([a, b], dim=1))``, in float32 without the
+    concatenation: the sum of two convolutions, one over each part of
+    ``conv``'s input channels (the bias in the second). The module and its
+    parameter names stay as they are; gradients reach ``conv.weight``
+    through its two slices.
+
+    PCD computes each of its convolutions of a concatenated input so.
+    Whole, in float32 with TF32 off, cuDNN's default heuristics (the v8
+    API) take FFT algorithms with up to ~18 GB workspaces for EDVR-L's
+    256 -> 128 ones (hundreds of ms a call on an H100 where the two halves
+    take about one; PERF.md), and the halves need no copy of the
+    concatenated input. Other dtypes (the bf16 step) take the concatenated
+    form: cuDNN picks no FFT there, the halves read slower on an H100, and
+    they would round each half's output before the sum, where the JAX
+    step rounds once."""
+    if a.dtype != torch.float32:
+        return conv(torch.cat([a, b], dim=1))
+    w = conv.weight
+    c = a.shape[1]
+    geo = (conv.stride, conv.padding, conv.dilation)
+    return (F.conv2d(a, w[:, :c], None, *geo)
+            + F.conv2d(b, w[:, c:], conv.bias, *geo))
+
+
 class PredeblurModule(nn.Module):
     """Pre-deblur pyramid (reference: edvr_arch.py:217-269;
     ``edvr_tpu/archs/edvr_arch.py:168-205``). With ``hr_in`` two stride-2
@@ -124,28 +149,26 @@ class PCDAlignment(nn.Module):
         feat = None
         for i in range(3, 0, -1):
             level = f'l{i}'
-            offset = torch.cat([nbr_feat_l[i - 1], ref_feat_l[i - 1]], dim=1)
-            offset = lrelu(self.offset_conv1[level](offset))
+            offset = lrelu(conv_cat(self.offset_conv1[level],
+                                    nbr_feat_l[i - 1], ref_feat_l[i - 1]))
             if i == 3:
                 offset = lrelu(self.offset_conv2[level](offset))
             else:
-                offset = lrelu(self.offset_conv2[level](
-                    torch.cat([offset, upsampled_offset], dim=1)))
+                offset = lrelu(conv_cat(self.offset_conv2[level], offset,
+                                        upsampled_offset))
                 offset = lrelu(self.offset_conv3[level](offset))
 
             feat = self.dcn_pack[level](nbr_feat_l[i - 1], offset)
             if i < 3:
-                feat = self.feat_conv[level](
-                    torch.cat([feat, upsampled_feat], dim=1))
+                feat = conv_cat(self.feat_conv[level], feat, upsampled_feat)
             if i > 1:
                 feat = lrelu(feat)
                 # upsample offset x2 and double its magnitude (:106-110)
                 upsampled_offset = _up2(offset) * 2
                 upsampled_feat = _up2(feat)
 
-        offset = torch.cat([feat, ref_feat_l[0]], dim=1)
         offset = lrelu(self.cas_offset_conv2(
-            lrelu(self.cas_offset_conv1(offset))))
+            lrelu(conv_cat(self.cas_offset_conv1, feat, ref_feat_l[0]))))
         return lrelu(self.cas_dcnpack(feat, offset))
 
 

@@ -46,16 +46,26 @@
 // TPU kernel's bf16 multiply rounds it), exact bf16 products and float32
 // sums. Reckoned at EDVR-M inference L1 it moves 0.894 GB (g_cat 664 MB,
 // cs_cat 83 MB, out_prev and out 74 MB each), 0.27 ms at 3.35 TB/s,
-// against 42.5 GFLOP, 0.043 ms at 989 TFLOP/s: bytes bound it. Design: the
-// fp32 kernel's blocks, warps and three-stage cp.async ring with 64-wide
-// chunks (128 bytes of a g_cat row, as the fp32 kernel's 32); each A
-// fragment pair is formed from two bf16 g values and their coefficients
-// and rounded to a bf16x2, the B fragments come by ldmatrix.trans, the
-// products are m16n8k16 bf16 mma.sync into a per-chunk float32 sum that
-// joins the running sum by one round-to-nearest add, as in the fp32 form.
-// No wexp_g split: its bf16 values are the operands. g_cat rows take W % 8
-// == 0 and coefficient rows an even count of slots (whole 4-byte pairs);
-// the wrapper checks both.
+// against 42.5 GFLOP, 0.043 ms at 989 TFLOP/s: bytes bound it, and g_cat
+// is three quarters of them. Design: a block owns 128 rows across all of
+// cout up to 128 (a 64- or 128-wide tile), so each g_cat row is read from
+// device memory once and blended once. Eight warps (4 x 2, each 32 rows x
+// half the tile) stream 64-wide chunks (128 bytes of a g_cat row, with
+// their coefficient slot pairs and wexp_g rows) through a cp.async ring;
+// all of them blend each raw chunk once into a bf16 A tile in shared
+// memory (16-byte pieces of each row swizzled by the row, as are the
+// wexp_g rows, so ldmatrix reads both without bank conflicts), then,
+// behind a barrier, multiply it: m16n8k16 bf16 mma.sync, A by ldmatrix, B
+// by ldmatrix.trans, summed per chunk in float32 and joined to the running
+// sum by one round-to-nearest add, as in the fp32 form. At a 64-wide tile
+// two blocks share an SM (128 registers, a 3-stage ring), which hides one
+// block's ring fill and epilogue behind the other's; a 128-wide tile keeps
+// one (240 registers, 5 stages). Measured on an H100 (PERF.md):
+// blending chunk k + 1 beside the products of chunk k, and wgmma for the
+// products, were no faster; at a 64-wide tile the kernel runs at the
+// speed of its own loads and stores. No wexp_g split: its bf16 values are
+// the operands. g_cat rows take W % 8 == 0 and coefficient rows an even
+// count of slots (whole 4-byte pairs); the wrapper checks both.
 
 #include "mma_common.cuh"
 
@@ -298,52 +308,89 @@ int launch(const float* g, const float* cs, const float* wexp,
 
 // ---- bf16 ----------------------------------------------------------------
 
+// Measurement builds of the bf16 form, wrong by design (python -m
+// edvr_tpu_torch.tools.ab_kernels --ablate blend_matmul_bf16): what is
+// left of the kernel's time without a part of its work.
+// -DBLEND_BF16_NO_MMA skips the products, -DBLEND_BF16_NO_BLEND copies the
+// raw g_cat chunk in place of the blend, -DBLEND_BF16_NO_B loads no wexp_g
+// rows.
+
 namespace bf {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BK = 64;        // width of a contraction chunk (128 bytes)
-constexpr int LDA = BK + 8;   // g_cat chunk row: 36 words, A reads conflict-free
-constexpr int LDB = BN + 8;   // wexp_g chunk row: 144 bytes, ldmatrix rows
-                              // on distinct banks
+constexpr int BK = 64;          // width of a contraction chunk (128 bytes)
+constexpr int THREADS = 256;    // 4 x 2 warps of 32 rows x BN/2 channels
+constexpr int SMEM_SM = 233472;   // shared memory of an H100 SM
+constexpr int SMEM_MAX = 232448;  // of one block
 
-template <int C_PER>
+// the deepest ring of at most s stages, and at least 2, whose stages of
+// stage_b bytes fit beside `fixed` bytes in `budget`
+constexpr int fit_stages(int s, int stage_b, int fixed, int budget) {
+  return s > 2 && s * stage_b + fixed > budget
+             ? fit_stages(s - 1, stage_b, fixed, budget) : s;
+}
+
+// BN channels (64 or 128, all of cout up to 128) of BM rows per block
+template <int C_PER, int BN>
 struct Cfg {
-  static constexpr int S = BK / C_PER;           // slots per chunk, even
-  static constexpr int LDCW = (S / 2) | 1;       // coefficient row, words
-  static constexpr int A_B = BM * LDA * 2;       // bytes of each part
-  static constexpr int B_B = BK * LDB * 2;
-  static constexpr int C_B = BM * LDCW * 4;
-  static constexpr int STAGE_B = A_B + B_B + C_B;  // multiple of 16
-  static constexpr size_t SMEM = (size_t)STAGES * STAGE_B;
+  static constexpr int S = BK / C_PER;        // slots per chunk, even
+  static constexpr int LDCW = (S / 2) | 1;    // coefficient row, words
+  static constexpr int G_B = BM * BK * 2;     // raw g_cat chunk
+  static constexpr int B_B = BK * BN * 2;     // wexp_g chunk (swizzled)
+  static constexpr int C_B = (BM * LDCW * 4 + 15) / 16 * 16;  // cs_cat
+  static constexpr int STAGE_B = G_B + B_B + C_B;
+  static constexpr int A_B = BM * BK * 2;     // one blended A tile
+  // two blocks an SM at a 64-wide tile (one read 0.50 ms against 0.36 at
+  // EDVR-M's L1, PERF.md), one at 128
+  static constexpr int MIN_BLOCKS = BN == 64 ? 2 : 1;
+  // each block's share of the SM (the runtime keeps 1 KB a block)
+  static constexpr int BUDGET =
+      SMEM_SM / MIN_BLOCKS - 1024 < SMEM_MAX ? SMEM_SM / MIN_BLOCKS - 1024
+                                             : SMEM_MAX;
+  // the deepest ring of up to 5 stages that fits beside the A tile
+  static constexpr int STAGES = fit_stages(5, STAGE_B, A_B, BUDGET);
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_B + A_B;
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
 };
 
-template <int C_PER>
+// 16-byte piece p of row r of a tile of 8 or more pieces a row, at piece
+// p ^ (r % 8): ldmatrix's eight rows of one piece fall on distinct banks
+template <int ROW>
+__device__ __forceinline__ int swz(int r, int p) {
+  return r * ROW + ((p ^ (r & 7)) << 3);
+}
+
+// copy chunk k0 of g_cat, its cs_cat slot pairs and its wexp_g rows into
+// a ring stage (zero-filled beyond NP, W and cout)
+template <int C_PER, int BN>
 __device__ __forceinline__ void load_stage(
     unsigned char* st, const bf16* __restrict__ g,
     const uint32_t* __restrict__ cs, const bf16* __restrict__ wexp, int r0,
     int o0, int k0, int NP, int W, int cout, bool vec_b, int tid) {
-  using C = Cfg<C_PER>;
-  bf16* a_s = reinterpret_cast<bf16*>(st);
-  bf16* b_s = reinterpret_cast<bf16*>(st + C::A_B);
-  uint32_t* c_s = reinterpret_cast<uint32_t*>(st + C::A_B + C::B_B);
-  // g_cat: 128 rows x 8 pieces of 16 bytes (W % 8 == 0: a piece is wholly
-  // in range or out)
+  using C = Cfg<C_PER, BN>;
+  bf16* g_s = reinterpret_cast<bf16*>(st);
+  bf16* b_s = reinterpret_cast<bf16*>(st + C::G_B);
+  uint32_t* c_s = reinterpret_cast<uint32_t*>(st + C::G_B + C::B_B);
+  // g_cat: 128 rows x 8 pieces of 16 bytes, unpadded (the blend reads a
+  // row's 8 pieces with 8 lanes); W % 8 == 0: a piece is wholly in or out
 #pragma unroll
   for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {
     const int q = tid + i * THREADS;
-    const int row = q / (BK / 8), c8 = q % (BK / 8);
+    const int row = q >> 3, c8 = q & 7;
     const int r = r0 + row, c = k0 + 8 * c8;
     const bool ok = r < NP && c < W;
-    cp_async16(a_s + row * LDA + 8 * c8, ok ? g + (size_t)r * W + c : g, ok);
+    cp_async16(g_s + row * BK + 8 * c8, ok ? g + (size_t)r * W + c : g, ok);
   }
-  // wexp_g: 64 rows x 64 channels; a ragged cout by plain loads
+  // wexp_g: 64 rows x BN channels, pieces swizzled; a ragged cout by
+  // plain loads
+#ifndef BLEND_BF16_NO_B
 #pragma unroll
   for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
     const int q = tid + i * THREADS;
     const int kk = q / (BN / 8), o8 = q % (BN / 8);
     const int k = k0 + kk, o = o0 + 8 * o8;
-    bf16* dst = b_s + kk * LDB + 8 * o8;
+    bf16* dst = b_s + swz<BN>(kk, o8);
     if (vec_b) {
       const bool ok = k < W && o < cout;
       cp_async16(dst, ok ? wexp + (size_t)k * cout + o : wexp, ok);
@@ -354,12 +401,11 @@ __device__ __forceinline__ void load_stage(
                                        : __float2bfloat16(0.f);
     }
   }
+#endif
   // cs_cat: 128 rows x S/2 pairs of slots, 4 bytes each
   const int CW2 = W / C_PER / 2;
   const int j0 = k0 / C_PER / 2;
-#pragma unroll
-  for (int i = 0; i < C::S / 2; ++i) {
-    const int q = tid + i * THREADS;
+  for (int q = tid; q < BM * (C::S / 2); q += THREADS) {
     const int row = q / (C::S / 2), j = q % (C::S / 2);
     const int r = r0 + row;
     const bool ok = r < NP && j0 + j < CW2;
@@ -368,128 +414,92 @@ __device__ __forceinline__ void load_stage(
   }
 }
 
-// the A fragment register of row `row`, chunk columns k and k + 1 (k
-// even): bf16(g * c) for both, as a bf16x2 (column k in the low half)
-template <int C_PER>
-__device__ __forceinline__ uint32_t blend2(const bf16* a_s,
-                                           const bf16* c_row, int row,
-                                           int k) {
-  const __nv_bfloat162 g2 =
-      *reinterpret_cast<const __nv_bfloat162*>(a_s + row * LDA + k);
-  const float c0 = __bfloat162float(c_row[k / C_PER]);
-  const float c1 = __bfloat162float(c_row[(k + 1) / C_PER]);
-  const __nv_bfloat162 p =
-      __floats2bfloat162_rn(__low2float(g2) * c0, __high2float(g2) * c1);
-  return *reinterpret_cast<const uint32_t*>(&p);
+// blend a raw ring stage into A tile a_s, once for the whole block: each
+// element bf16(g * c) (the exact float product rounded to nearest even,
+// as the TPU kernel's bf16 multiply), 8 columns a thread per piece
+template <int C_PER, int BN>
+__device__ __forceinline__ void blend_chunk(const unsigned char* st,
+                                            bf16* a_s, int tid) {
+  using C = Cfg<C_PER, BN>;
+  const bf16* g_s = reinterpret_cast<const bf16*>(st);
+  const bf16* c_s = reinterpret_cast<const bf16*>(st + C::G_B + C::B_B);
+#pragma unroll
+  for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {
+    const int q = tid + i * THREADS;
+    const int row = q >> 3, v = q & 7;
+    const uint4 raw = *reinterpret_cast<const uint4*>(g_s + row * BK + 8 * v);
+#ifdef BLEND_BF16_NO_BLEND
+    *reinterpret_cast<uint4*>(a_s + swz<BK>(row, v)) = raw;
+    continue;
+#endif
+    const bf16* c_row = c_s + 2 * row * C::LDCW;
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 8 * v + 2 * e;
+      const __nv_bfloat162 g2 = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+      const float c0 = __bfloat162float(c_row[k / C_PER]);
+      const float c1 = __bfloat162float(c_row[(k + 1) / C_PER]);
+      const __nv_bfloat162 p =
+          __floats2bfloat162_rn(__low2float(g2) * c0, __high2float(g2) * c1);
+      o[e] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    *reinterpret_cast<uint4*>(a_s + swz<BK>(row, v)) =
+        make_uint4(o[0], o[1], o[2], o[3]);
+  }
 }
 
-template <int C_PER>
-__global__ void __launch_bounds__(THREADS, 1)
-blend_matmul_bf16_kernel(const bf16* __restrict__ g,        // (NP, W)
-                         const uint32_t* __restrict__ cs,   // (NP, W / C_PER)
-                         const bf16* __restrict__ wexp,     // (W, cout)
-                         const float* __restrict__ prev,    // (NP, cout)
-                         float* __restrict__ out,           // (NP, cout)
-                         int NP, int W, int cout, bool vec_b, bool vec_out) {
-  using C = Cfg<C_PER>;
-  extern __shared__ float4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-
-  const int r0 = blockIdx.x * BM;
-  const int o0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, q = lane & 3;
-  const int wm = (warp >> 1) * 64;  // the warp's rows within the block
-  const int wn = (warp & 1) * 32;   // and channels
-  // ldmatrix.x4.trans: lane l gives row l % 8 of matrix l / 8, the
-  // matrices being (k 0-7, n8 tile), (k 8-15, tile), (k 0-7, tile + 1),
-  // (k 8-15, tile + 1)
-  const int mi = lane >> 3, rr = lane & 7;
-  const int brow = (rr + 8 * (mi & 1)) * LDB + wn + 8 * (mi >> 1);
-
-  float acc[4][4][4];
+// the products of one chunk: A tile a_s (blended) by the ring stage's
+// wexp_g rows b_s into the warp's per-chunk sums
+template <int BN>
+__device__ __forceinline__ void mma_chunk(const bf16* a_s, const bf16* b_s,
+                                          float (*part)[BN / 16][4], int wm,
+                                          int wn, int lane) {
+  // ldmatrix.x4 of an m16 x k16 A tile: lane l gives row l % 16, piece
+  // l / 16 of the k16 step; ldmatrix.x4.trans of two n8 B tiles: lane l
+  // gives row l % 8 of matrix l / 8, the matrices being (k 0-7, n8 tile),
+  // (k 8-15, tile), (k 0-7, tile + 1), (k 8-15, tile + 1)
+  const int arow = lane & 15, ahalf = lane >> 4;
+  const int mi = lane >> 3, bk = (lane & 7) + 8 * (mi & 1);
+  const int bp = (wn >> 3) + (mi >> 1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    uint32_t a[2][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 2; ++i)
+      ldsm_x4(a[i], a_s + swz<BK>(wm + 16 * i + arow, 2 * kk + ahalf));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = (W + BK - 1) / BK;
+    for (int jp = 0; jp < BN / 32; ++jp) {
+      uint32_t bb[4];  // the n8 tiles 2 jp and 2 jp + 1
+      ldsm_x4_trans(bb, b_s + swz<BN>(16 * kk + bk, bp + 2 * jp));
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk)
-      load_stage<C_PER>(smem + s * C::STAGE_B, g, cs, wexp, r0, o0, s * BK,
-                        NP, W, cout, vec_b, tid);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // chunk kt has landed
-    __syncthreads();              // and every warp is done with kt - 1
-    const int nxt = kt + STAGES - 1;
-    if (nxt < nk)
-      load_stage<C_PER>(smem + (nxt % STAGES) * C::STAGE_B, g, cs, wexp, r0,
-                        o0, nxt * BK, NP, W, cout, vec_b, tid);
-    cp_async_commit();
-
-    const unsigned char* st = smem + (kt % STAGES) * C::STAGE_B;
-    const bf16* a_s = reinterpret_cast<const bf16*>(st);
-    const bf16* b_s = reinterpret_cast<const bf16*>(st + C::A_B);
-    const bf16* c_s = reinterpret_cast<const bf16*>(st + C::A_B + C::B_B);
-    // the chunk's sum, apart (the tensor cores truncate their float32
-    // sums), joined to the running sum by one float32 add
-    float part[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // A: the blended, rounded g_cat pairs of the warp's four m16 tiles
-      uint32_t a[4][4];
-      const int k1 = kk + 2 * q, k2 = k1 + 8;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r1 = wm + 16 * i + gq, r2 = r1 + 8;
-        const bf16* c1 = c_s + 2 * r1 * C::LDCW;
-        const bf16* c2 = c_s + 2 * r2 * C::LDCW;
-        a[i][0] = blend2<C_PER>(a_s, c1, r1, k1);
-        a[i][1] = blend2<C_PER>(a_s, c2, r2, k1);
-        a[i][2] = blend2<C_PER>(a_s, c1, r1, k2);
-        a[i][3] = blend2<C_PER>(a_s, c2, r2, k2);
-      }
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t bb[4];  // the n8 tiles 2 jp and 2 jp + 1
-        ldsm_x4_trans(bb, b_s + brow + kk * LDB + 16 * jp);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          mma_bf16(part[i][2 * jp], a[i], bb);
-          mma_bf16(part[i][2 * jp + 1], a[i], bb + 2);
-        }
+      for (int i = 0; i < 2; ++i) {
+        mma_bf16(part[i][2 * jp], a[i], bb);
+        mma_bf16(part[i][2 * jp + 1], a[i], bb + 2);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
   }
+}
 
-  // epilogue: out = out_prev + acc, two neighbouring channels a lane
+// out = out_prev + acc over the warp's tile of the 128 rows from r0 (two
+// neighbouring channels a lane)
+template <int BN>
+__device__ __forceinline__ void store_band(float (*acc)[BN / 16][4],
+                                           const float* __restrict__ prev,
+                                           float* __restrict__ out, int r0,
+                                           int o0, int NP, int cout,
+                                           bool vec_out, int wm, int wn,
+                                           int lane) {
+  const int gq = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + wm + 16 * i + gq + 8 * h;
       if (r >= NP) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < BN / 16; ++j) {
         const int o = o0 + wn + 8 * j + 2 * q;
         const size_t at = (size_t)r * cout + o;
         const float x0 = acc[i][j][2 * h], x1 = acc[i][j][2 * h + 1];
@@ -506,12 +516,86 @@ blend_matmul_bf16_kernel(const bf16* __restrict__ g,        // (NP, W)
   }
 }
 
-template <int C_PER>
-int launch(const bf16* g, const uint32_t* cs, const bf16* wexp,
-           const float* prev, float* out, int NP, int W, int cout,
-           cudaStream_t stream) {
-  using C = Cfg<C_PER>;
-  auto kernel = blend_matmul_bf16_kernel<C_PER>;
+template <int C_PER, int BN>
+__global__ void __launch_bounds__(THREADS, (Cfg<C_PER, BN>::MIN_BLOCKS))
+blend_matmul_bf16_kernel(const bf16* __restrict__ g,        // (NP, W)
+                         const uint32_t* __restrict__ cs,   // (NP, W / C_PER)
+                         const bf16* __restrict__ wexp,     // (W, cout)
+                         const float* __restrict__ prev,    // (NP, cout)
+                         float* __restrict__ out,           // (NP, cout)
+                         int NP, int W, int cout, bool vec_b, bool vec_out) {
+  using C = Cfg<C_PER, BN>;
+  constexpr int STAGES = C::STAGES;
+  constexpr int NT = BN / 16;  // n8 tiles of a warp
+  extern __shared__ float4 smem4[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);
+  bf16* a_tile = reinterpret_cast<bf16*>(ring + STAGES * C::STAGE_B);
+
+  const int r0 = blockIdx.x * BM;
+  const int o0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 1) * 32;        // the warp's rows within the block
+  const int wn = (warp & 1) * (BN / 2);   // and channels
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = (W + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      load_stage<C_PER, BN>(ring + s * C::STAGE_B, g, cs, wexp, r0, o0,
+                            s * BK, NP, W, cout, vec_b, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // chunk kt has landed
+    __syncthreads();              // every warp is done with kt - 1
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk)
+      load_stage<C_PER, BN>(ring + (nxt % STAGES) * C::STAGE_B, g, cs, wexp,
+                            r0, o0, nxt * BK, NP, W, cout, vec_b, tid);
+    cp_async_commit();
+    // the chunk blended once, by the whole block, then multiplied
+    blend_chunk<C_PER, BN>(ring + (kt % STAGES) * C::STAGE_B, a_tile, tid);
+    __syncthreads();
+    const bf16* b_s =
+        reinterpret_cast<const bf16*>(ring + (kt % STAGES) * C::STAGE_B +
+                                      C::G_B);
+    // the chunk's sum, apart (the tensor cores truncate their float32
+    // sums), joined to the running sum by one float32 add
+    float part[2][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#ifndef BLEND_BF16_NO_MMA
+    mma_chunk<BN>(a_tile, b_s, part, wm, wn, lane);
+#endif
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+  store_band<BN>(acc, prev, out, r0, o0, NP, cout, vec_out, wm, wn, lane);
+}
+
+template <int C_PER, int BN>
+int launch_bn(const bf16* g, const uint32_t* cs, const bf16* wexp,
+              const float* prev, float* out, int NP, int W, int cout,
+              cudaStream_t stream) {
+  using C = Cfg<C_PER, BN>;
+  auto kernel = blend_matmul_bf16_kernel<C_PER, BN>;
   int e = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (e) return e;
@@ -522,6 +606,19 @@ int launch(const bf16* g, const uint32_t* cs, const bf16* wexp,
   kernel<<<grid, THREADS, C::SMEM, stream>>>(g, cs, wexp, prev, out, NP, W,
                                               cout, vec_b, vec_out);
   return (int)cudaGetLastError();
+}
+
+// one block column for cout <= 128 (64 wide up to 64): every g_cat row is
+// read and blended by one block
+template <int C_PER>
+int launch(const bf16* g, const uint32_t* cs, const bf16* wexp,
+           const float* prev, float* out, int NP, int W, int cout,
+           cudaStream_t stream) {
+  return cout <= 64
+             ? launch_bn<C_PER, 64>(g, cs, wexp, prev, out, NP, W, cout,
+                                    stream)
+             : launch_bn<C_PER, 128>(g, cs, wexp, prev, out, NP, W, cout,
+                                     stream);
 }
 
 }  // namespace bf

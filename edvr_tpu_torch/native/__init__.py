@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC = osp.join(_PKG, 'csrc')
 BUILD_DIR = osp.join(_PKG, '_build')
@@ -41,7 +43,7 @@ SIGNATURES = {
     'dcn_fwd_ablate_bf16': ('dcn_fwd_ablate_bf16', _FWD_ABLATE),
     'dcn_bwd': ('dcn_bwd_f32', _BWD),
     'dcn_bwd_bf16': ('dcn_bwd_bf16', _BWD),
-    'row_gather': ('row_gather_f32', [_P] * 4 + [_I] * 3 + [_P]),
+    'row_gather': ('row_gather_f32', [_P] * 3 + [_I] * 3 + [_P]),
     'blend_matmul': ('blend_matmul_f32', [_P] * 5 + [_I] * 4 + [_P]),
     'blend_matmul_bf16': ('blend_matmul_bf16', [_P] * 5 + [_I] * 4 + [_P]),
 }
@@ -145,6 +147,26 @@ def load(name: str):
     fn.restype = ctypes.c_int
     _libs[name] = fn
     return fn
+
+
+# the current cudaStream_t of a device index, read without building a
+# torch.cuda.Stream (PyTorch's private binding; the public form where a
+# release no longer has it)
+raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def launch(fn, device, *args) -> int:
+    """Call the bound entry ``fn(*args, stream)`` on ``device``'s current
+    stream, with ``device`` the current device while it launches; returns
+    its error code. The device is switched only when it is not current
+    already: this is the whole host path of a small launch."""
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        return fn(*args, raw_stream(current))
+    with torch.cuda.device(index):
+        return fn(*args, raw_stream(index))
 
 
 def check(name: str, err: int) -> None:

@@ -100,11 +100,10 @@ def blend_matmul_cuda(g_cat, cs_cat, wexp_g, out_prev, c_per):
     entry = ENTRIES[g_cat.dtype]
     fn = native.load(entry)
     out = torch.empty_like(out_prev)
-    with torch.cuda.device(g_cat.device):
-        stream = torch.cuda.current_stream(g_cat.device).cuda_stream
-        err = fn(g_cat.data_ptr(), cs_cat.data_ptr(), wexp_g.data_ptr(),
-                 out_prev.data_ptr(), out.data_ptr(), NP, width, cout, c_per,
-                 stream)
+    err = native.launch(fn, g_cat.device, g_cat.data_ptr(),
+                        cs_cat.data_ptr(), wexp_g.data_ptr(),
+                        out_prev.data_ptr(), out.data_ptr(), NP, width, cout,
+                        c_per)
     native.check(entry, err)
     native.LAUNCHES[entry] += 1
     return out

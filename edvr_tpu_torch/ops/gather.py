@@ -28,9 +28,11 @@ def row_gather_plain(table, idx):
 def row_gather_cuda(table, idx):
     """``table[idx]`` through the CUDA kernel (float32 (R, L) table, or
     bfloat16 with an even L, gathered as float32 words; int32 (G,)
-    indices; no autograd). Raises on any input the kernel does not take,
-    and ``IndexError`` when an index lies outside [0, R): the kernel
-    raises an error flag, which this wrapper reads (a synchronisation)."""
+    indices; no autograd). Raises on any input the kernel does not take.
+    An index outside [0, R) fails the kernel with a device-side assertion,
+    as ``index_select`` does on CUDA: the error surfaces as a CUDA error
+    (``cudaErrorAssert``) at the next synchronisation, and the process's
+    CUDA context is lost. The call itself never synchronises."""
     for name, t in (('table', table), ('idx', idx)):
         if not t.is_cuda or t.device != table.device:
             raise ValueError(f'row_gather: {name} must lie on '
@@ -45,26 +47,22 @@ def row_gather_cuda(table, idx):
                          f'{tuple(table.shape)} and {tuple(idx.shape)}')
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError('row_gather: table and idx must be contiguous')
-    if table.dtype == torch.bfloat16 and table.shape[1] % 2:
+    low = table.dtype == torch.bfloat16
+    if low and table.shape[1] % 2:
         raise ValueError('row_gather: a bfloat16 table needs an even row '
                          'length (pairs of lanes in 32-bit words)')
-    words = table.view(torch.float32)  # a bf16 row as its 32-bit words
-    (R, L), G = words.shape, idx.shape[0]
     if table.data_ptr() % 16:
         raise ValueError('row_gather: the table must be 16-byte aligned')
+    words = table.view(torch.float32) if low else table  # 32-bit words
+    (R, L), G = words.shape, idx.shape[0]
 
-    fn = native.load('row_gather')
     out = torch.empty(G, L, device=table.device, dtype=torch.float32)
-    bad = torch.zeros(1, device=table.device, dtype=torch.int32)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(words.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                 bad.data_ptr(), G, R, L, stream)
+    err = native.launch(native.load('row_gather'), table.device,
+                        words.data_ptr(), idx.data_ptr(), out.data_ptr(), G,
+                        R, L)
     native.check('row_gather', err)
     native.LAUNCHES['row_gather'] += 1
-    if bad.item():
-        raise IndexError(f'row_gather: an index lies outside [0, {R})')
-    return out.view(table.dtype)
+    return out.view(torch.bfloat16) if low else out
 
 
 class RowGatherFunction(torch.autograd.Function):

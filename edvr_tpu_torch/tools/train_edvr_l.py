@@ -20,7 +20,9 @@ alone), ``create_train_val_dataloader``,
 so the samples move), then ``--steps`` timed steps (``feed_data`` +
 ``optimize_parameters``, host clock around work that ends in
 ``torch.cuda.synchronize()``) after warm-up steps, and, where asked, two
-passes of ``validation`` (the second timed). Prints one JSON line per run
+passes of ``validation`` (the second timed). The ``c6_halves_*`` runs
+first compute every wide 3x3 convolution in halves
+(:func:`halve_wide_convs`, a measurement). Prints one JSON line per run
 (ms per step, peak bytes of the steps and of validation, ms per
 validation window, the DCN launches per step, the cuDNN environment) and
 the card's name and power limit; with ``--out``, also writes the lines
@@ -43,6 +45,8 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from edvr_tpu_torch.test import INFERENCE_CUDNN_ENV
 from edvr_tpu_torch.tools.synthetic import (TRAIN_GT, VAL_FRAMES, VAL_LQ,
@@ -125,8 +129,30 @@ POLICIES = {'default': {}, 'capped': INFERENCE_CUDNN_ENV,
                 ('v7', 'TORCH_CUDNN_V8_API_DISABLED'))}}
 
 
+def halve_wide_convs():
+    """Measurement of C.6's alternative, which was not adopted: every 3x3
+    ``nn.Conv2d`` of 128 or more input channels in this process computes
+    as two convolutions over the halves of its input channels, the form
+    ``archs.edvr_arch.conv_cat`` gives PCD's concatenated inputs in
+    float32 (which call ``F.conv2d`` themselves, so they are not halved
+    again)."""
+    conv_forward = nn.Conv2d._conv_forward
+
+    def halves(self, x, w, b):
+        if (w.shape[1] < 128 or w.shape[2:] != (3, 3) or self.groups != 1
+                or self.padding_mode != 'zeros'):
+            return conv_forward(self, x, w, b)
+        c = w.shape[1] // 2
+        geo = (self.stride, self.padding, self.dilation)
+        return (F.conv2d(x[:, :c], w[:, :c], None, *geo)
+                + F.conv2d(x[:, c:], w[:, c:], b, *geo))
+
+    nn.Conv2d._conv_forward = halves
+
+
 def runs():
-    """The configurations: (name, yml, batch, remat, mp, policy, val)."""
+    """The configurations: (name, yml, batch, remat, mp, policy, val,
+    halves)."""
     out = []
     # C.5: EDVR-L and EDVR-M steps and validation under each choice
     for net, yml in (('L', 'train_EDVR_L_x4_SR_REDS'),
@@ -134,7 +160,18 @@ def runs():
         for mp in ('fp32', 'bf16'):
             for policy in POLICIES:
                 out.append((f'c5_{net}_{mp}_{policy}', yml, 4, False, mp,
-                            policy, True))
+                            policy, True, False))
+    # C.6: EDVR-L at the shipped batch of 32 under PyTorch's default; and
+    # every wide 3x3 convolution in halves under it
+    for mp in ('fp32', 'bf16'):
+        out.append((f'c6_L_b32_{mp}_default', 'train_EDVR_L_x4_SR_REDS', 32,
+                    False, mp, 'default', False, False))
+    for net, yml in (('L', 'train_EDVR_L_x4_SR_REDS'),
+                     ('M', 'train_EDVR_M_x4_SR_REDS')):
+        for batch in (4, 32) if net == 'L' else (4,):
+            for mp in ('fp32', 'bf16'):
+                out.append((f'c6_halves_{net}_b{batch}_{mp}', yml, batch,
+                            False, mp, 'default', batch == 4, True))
     # the EDVR-L YAMLs under the CLI's own choice
     for yml in ('train_EDVR_L_x4_SR_REDS_woTSA', 'train_EDVR_L_x4_SR_REDS'):
         for batch in (4, 32):
@@ -143,7 +180,7 @@ def runs():
                     tag = 'woTSA' if yml.endswith('woTSA') else 'TSA'
                     out.append((f'{tag}_b{batch}_{mp}'
                                 f'{"_remat" if remat else ""}', yml, batch,
-                                remat, mp, 'cli', False))
+                                remat, mp, 'cli', False, False))
     return out
 
 
@@ -245,6 +282,8 @@ def run_validation(model, loaders):
 def child(spec):
     """One run (in this process, which must not have run a convolution):
     returns its readings."""
+    if spec['halves']:
+        halve_wide_convs()
     _, env, cuts, loaders, model = build(
         spec['yml'], spec['root'], spec['batch'], spec['policy'],
         spec['remat'], spec['mp'] if spec['mp'] == 'bf16' else None)
@@ -292,11 +331,12 @@ def main(argv=None):
                if k not in INFERENCE_CUDNN_ENV}
         env['PYTHONPATH'] = os.pathsep.join(
             [REPO, os.environ.get('PYTHONPATH', '')])
-        for name, yml, batch, remat, mp, policy, val in runs():
+        for name, yml, batch, remat, mp, policy, val, halves in runs():
             if args.only and name not in args.only:
                 continue
             spec = dict(name=name, yml=yml, batch=batch, remat=remat, mp=mp,
-                        policy=policy, val=val, steps=args.steps, root=root)
+                        policy=policy, val=val, halves=halves,
+                        steps=args.steps, root=root)
             proc = subprocess.run(
                 [sys.executable, '-m', 'edvr_tpu_torch.tools.train_edvr_l',
                  '--child', json.dumps(spec)], cwd=tmp, env=env,

@@ -99,15 +99,21 @@ def test_ablate_tool_bound_follows_the_kernel():
 
 def test_ab_tool_refuses_unknown_sources():
     with pytest.raises(SystemExit):
-        ab_kernels.main(['OLD_GATHER=csrc/row_gather.cu'])
+        ab_kernels.main(['OLD_SCATTER=csrc/row_gather.cu'])
     with pytest.raises(SystemExit):
         ab_kernels.main(['OLD_BLEND='])
     with pytest.raises(SystemExit):
         ab_kernels.main(['OLD_FWD='])
+    with pytest.raises(SystemExit):
+        ab_kernels.main(['--ablate', 'no_such_group'])
     assert set(ab_kernels.OLD_SOURCES) == {'OLD_FWD', 'OLD_BLEND',
-                                           'OLD_BWD'}
+                                           'OLD_BWD', 'OLD_GATHER'}
     assert ab_kernels.OLD_SOURCES['OLD_FWD'] == ('dcn_fwd', (
         'dcn_fwd', 'dcn_fwd_bf16'))
+    assert ab_kernels.OLD_SOURCES['OLD_BLEND'] == ('blend_matmul', (
+        'blend_matmul', 'blend_matmul_bf16'))
+    assert ab_kernels.OLD_SOURCES['OLD_GATHER'] == ('row_gather',
+                                                    ('row_gather',))
 
 
 def test_ab_tool_needs_a_card(monkeypatch):

@@ -83,6 +83,13 @@ def _blend_bf16_args(seed, NP, K, lanes, c_per, cout):
     (70, 3, 32, 4, 24),            # a width of 96: a ragged 64-wide chunk
     *[(777, K, 128, c_per, 64) for c_per in (1, 2, 4, 8, 16, 32)
       for K in (1, 9)],
+    *[(777, K, 128, c_per, 128) for c_per in (1, 2, 4, 8, 16, 32)
+      for K in (1, 9)],
+    (1000 + 13, 9, 128, 16, 100),  # ragged rows and channels, one block
+                                   # column of 128
+    (100, 9, 128, 16, 200),        # cout above 128: two block columns
+    (70, 3, 32, 4, 128),           # a ragged 64-wide chunk at cout 128
+    (5, 1, 128, 1, 128),           # fewer rows than one block
 ])
 def test_blend_bf16_kernel_matches_plain(cuda, NP, K, lanes, c_per, cout):
     """blend_matmul_bf16 against its plain version (the bf16 products,
@@ -437,6 +444,13 @@ def test_edvr_train_steps_cuda_match_cpu(cuda):
     (1000, 128, 8003),     # a ragged last block of rows
     (37, 126, 515),        # a row of 126 floats: the 4-byte path
     (5, 4, 1),
+    (1000, 64, 8003),      # 64 words: two rows a warp, ragged
+    (5000, 128, 100),      # G below one wave of the grid
+    (700, 64, 37),
+    (40, 8, 77),           # 8 words: 16 rows a warp
+    (37, 132, 515),        # 33 pieces of 16 bytes: a warp per row
+    (300, 36, 999),        # 9 pieces: a warp per row
+    (3, 128, 3_000_000),   # a grid-stride loop of many steps
 ])
 def test_row_gather_kernel_matches_index_select(cuda, R, L, G):
     from edvr_tpu_torch.ops import gather
@@ -470,19 +484,87 @@ def test_row_gather_kernel_bf16_table(cuda):
         gather.row_gather_cuda(table[:, :127].contiguous(), idx)
 
 
+@pytest.mark.parametrize('R,lanes,G', [
+    (1000, 128, 8003),     # the packed route's bf16 tiles: 64 words
+    (1000, 256, 8003),     # 128 words
+    (5000, 128, 100),      # G below one wave of the grid
+    (77, 128, 1),
+    (300, 64, 999),        # 32 words
+])
+def test_row_gather_kernel_bf16_tables(cuda, R, lanes, G):
+    """bf16 tables of 64 and 128 words a row, gathered bitwise as
+    index_select, one launch each."""
+    from edvr_tpu_torch.ops import gather
+    gen = torch.Generator().manual_seed(R + G + lanes)
+    table = torch.randn(R, lanes, generator=gen).to(cuda, torch.bfloat16)
+    idx = torch.randint(0, R, (G,), generator=gen, dtype=torch.int32).to(
+        cuda)
+    before = dcn.LAUNCHES['row_gather']
+    got = gather.row_gather_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert dcn.LAUNCHES['row_gather'] == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, table.index_select(0, idx))
+
+
+# an out-of-range index fails the kernel with a device-side assertion, as
+# index_select does; the context is then lost, so each case runs in a
+# child process
+_OUT_OF_RANGE = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+from edvr_tpu_torch.ops import gather
+table = torch.randn(10, 128, device='cuda')
+idx = torch.tensor([0, 3, {bad}, 9], dtype=torch.int32, device='cuda')
+out = gather.row_gather_cuda(table, idx)
+torch.cuda.synchronize()
+print('no error', out.abs().sum().item())
+"""
+
+
 def test_row_gather_kernel_refuses(cuda):
     from edvr_tpu_torch.ops import gather
-    table = torch.randn(10, 128, device=cuda)
+    import subprocess
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
     for bad in (10, -1):
-        idx = torch.tensor([0, 3, bad, 9], dtype=torch.int32, device=cuda)
-        with pytest.raises(IndexError, match='outside'):
-            gather.row_gather_cuda(table, idx)
+        child = subprocess.run(
+            [sys.executable, '-c', _OUT_OF_RANGE.format(root=root, bad=bad)],
+            capture_output=True, text=True, timeout=600)
+        said = child.stdout + child.stderr
+        assert child.returncode != 0 and 'no error' not in said, said
+        assert 'device-side assert' in said, said[-2000:]
+    table = torch.randn(10, 128, device=cuda)
+    idx = torch.tensor([0, 3, 9, 9], dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         gather.row_gather_cuda(table, idx.long())
     with pytest.raises(ValueError, match='CUDA'):
         gather.row_gather_cuda(table, idx.cpu())
     with pytest.raises(ValueError, match='contiguous'):
         gather.row_gather_cuda(table.t(), idx[:2].clamp(0, 3))
+
+
+def test_launch_takes_the_current_stream(cuda):
+    """native.launch hands each kernel the caller's current stream: the
+    raw handle it reads equals torch.cuda.current_stream's on the default
+    stream and under a side stream, and a gather queued on the side stream
+    is right once that stream is done."""
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.ops import gather
+    index = torch.cuda.current_device()
+    default = torch.cuda.current_stream(index).cuda_stream
+    assert native.raw_stream(index) == default
+    table = torch.randn(1000, 128, device=cuda)
+    idx = torch.randint(0, 1000, (8003,), device=cuda, dtype=torch.int32)
+    want = table.index_select(0, idx)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert native.raw_stream(index) == side.cuda_stream != default
+        got = gather.row_gather_cuda(table, idx)
+    side.synchronize()
+    assert native.raw_stream(index) == default
+    assert torch.equal(got, want)
 
 
 def _blend_args(seed, NP, K, lanes, c_per, cout):
@@ -592,6 +674,77 @@ def test_packed_edvr_step_cuda_matches_cpu(cuda, monkeypatch):
     assert counts == _launches(row_gather=8, blend_matmul=8)
     for name, g in grads['cpu'].items():
         assert _rel_err(grads['cuda'][name], g) <= 1e-3, name
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_packed_route_makes_no_host_sync(cuda, monkeypatch, dtype):
+    """The packed route's forward and backward (8 gathers and 8 blends at
+    dg 8) run under torch.cuda.set_sync_debug_mode('error'), which raises
+    on any host synchronisation: the gather no longer reads a flag back."""
+    monkeypatch.setenv('EDVR_TPU_DCN_PALLAS', '1')
+    from edvr_tpu_torch.ops import dcn_blend
+    args, kw = _case(4, n=4, cin=64, cout=64, h=24, w=40, dg=8, far=0.05)
+    leaves = [a.to(dtype).requires_grad_() for a in args]
+    dout = torch.randn(4, 64, 24, 40, device=cuda, dtype=dtype)
+    torch.cuda.synchronize()
+    before = dict(dcn.LAUNCHES)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = dcn.modulated_deform_conv(*leaves, **kw)
+        out.backward(dout)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == _launches(
+        **{'row_gather': 8, dcn_blend.ENTRIES[dtype]: 8})
+    assert all(torch.isfinite(a.grad.float()).all() for a in leaves)
+
+
+def _pcd_concatenated(pcd, nbr, ref):
+    """PCDAlignment's forward with each concatenated input built by
+    torch.cat and passed to its convolution whole, the form before the
+    split (BasicSR's)."""
+    from edvr_tpu_torch.archs.arch_util import lrelu
+    from edvr_tpu_torch.archs.edvr_arch import _up2
+    up_off = up_feat = feat = None
+    for i in range(3, 0, -1):
+        lv = f'l{i}'
+        off = lrelu(pcd.offset_conv1[lv](torch.cat([nbr[i - 1], ref[i - 1]],
+                                                   1)))
+        if i == 3:
+            off = lrelu(pcd.offset_conv2[lv](off))
+        else:
+            off = lrelu(pcd.offset_conv2[lv](torch.cat([off, up_off], 1)))
+            off = lrelu(pcd.offset_conv3[lv](off))
+        feat = pcd.dcn_pack[lv](nbr[i - 1], off)
+        if i < 3:
+            feat = pcd.feat_conv[lv](torch.cat([feat, up_feat], 1))
+        if i > 1:
+            feat = lrelu(feat)
+            up_off, up_feat = _up2(off) * 2, _up2(feat)
+    off = lrelu(pcd.cas_offset_conv2(lrelu(pcd.cas_offset_conv1(
+        torch.cat([feat, ref[0]], 1)))))
+    return lrelu(pcd.cas_dcnpack(feat, off))
+
+
+def test_edvr_l_split_pcd_matches_concatenated(cuda):
+    """EDVR-L's PCD (128 features, dg 8) on the card, its concatenated-
+    input convolutions split (the port's form), against the same module
+    with each concatenation passed whole, at 3e-4."""
+    from edvr_tpu_torch.archs.edvr_arch import PCDAlignment
+    torch.manual_seed(0)
+    pcd = PCDAlignment(num_feat=128, deformable_groups=8).to(cuda).eval()
+    with torch.no_grad():
+        for name, p in pcd.named_parameters():
+            if 'conv_offset' in name:
+                p.normal_(0, 0.01)
+    gen = torch.Generator().manual_seed(1)
+    nbr, ref = ([torch.rand(5, 128, 48 // s, 64 // s, generator=gen).to(cuda)
+                 for s in (1, 2, 4)] for _ in range(2))
+    with torch.no_grad():
+        got = pcd(nbr, ref)
+        want = _pcd_concatenated(pcd, nbr, ref)
+    assert (got - want).abs().max().item() <= 3e-4
 
 
 def test_test_cli_on_card_matches_cpu(cuda, tmp_path):

@@ -15,7 +15,8 @@ on the direct DCN kernels, both again through the packed DCN route
 of the tap_shared variant
 (``options/train/EDVR/train_EDVR_M_x4_SR_REDS_tapshared.yml``), training
 in bf16 (``mixed_precision: bf16`` kept) and the DCN forward's ablation
-variants through their timing tool; and checks every hand-written kernel
+variants through their timing tool, then the GAN training and image-SR
+configurations (phases 26-29); and checks every hand-written kernel
 of those paths against its plain PyTorch version. Phases, each printing
 one flushed JSON line with its ``seconds``:
 
@@ -158,6 +159,38 @@ CLI does for EDVR-M.
     at EDVR-L's packed shapes (4 pixels per 128-lane row, width 9 x 128,
     cout 128) against their plain versions, then EDVR-L on the packed route
     (``EDVR_TPU_DCN_PALLAS=1``) on a 5-frame clip against the direct route.
+
+The GAN and image-SR slice (``gan_sr_phases``; configurations, seeded data
+and timing from ``edvr_tpu_torch/tools/gan_sr.py``), in this process under
+PyTorch's default cuDNN choice, the training CLI's for these networks:
+
+26. kernel_gan_<level>: the fp32 DCN forward and backward kernels against
+    their plain versions at VideoGAN's PCD batch (n 160: 32 clips x 5
+    frames; 32/16/8 px), offsets beyond +-10 px, times beside the bounds;
+27. gan_train: ``train_MSRGAN_x4.yml`` (batch 16, GT 128),
+    ``train_ESRGAN_x4.yml`` (RRDBNet 23 blocks, batch 16, the VGG19
+    perceptual loss at conv5_4 with a seeded VGG: no .pth in the repo) and
+    ``train_EDVRM_VideoGAN_REDS.yml`` (G from the golden EDVR-M weights,
+    batch 32, GT 128) through ``create_model`` / ``feed_data`` /
+    ``optimize_parameters`` on seeded in-memory batches: a warm step and
+    GAN_STEPS timed ones (ms per step, peak memory), finite losses with
+    the JAX engine's log keys, VideoGAN's 4 dcn_fwd and 4 dcn_bwd launches
+    a step (none for the image GANs); then from one seeded state two
+    batch-2 steps on the card and on the CPU with ``net_d_init_iters`` 1:
+    step 1 leaves G and its Adam state as they were and moves D, and G's
+    and D's gradients and D's running statistics agree within
+    STEP_GRAD_TOL;
+28. sr_train: the MSRResNet x4, EDSR-L x4, RCAN x2 and RRDBNet PSNR
+    training YAMLs at their batch and crop, a warm step and SR_TRAIN_STEPS
+    timed ones;
+29. image_sr_test, in a child process (``chip_smoke.py --image-sr OUT``)
+    under the test CLI's cuDNN policy: the MSRResNet x4, EDSR-L x4, RCAN
+    x2 and RRDBNet x4 test YAMLs through ``create_dataset`` /
+    ``create_model`` / ``validation`` on three seeded DIV2K-validation-sized
+    PNG pairs each (HR 2040x1356), PSNR and SSIM, ms per image through the
+    CLI's functions and for the network alone, peak memory, and one
+    64x64 LQ crop against the plain CPU path (IMAGE_SR_TOL of max|out|);
+    then the woGT YAML (SingleImageDataset) on the same LQ images.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -383,6 +416,35 @@ PACKED_L_T = 5                      # frames of packed_edvr_l's clip (>= 5)
 L_TRAIN_STEPS = 3
 L_TSA_ITER = 2
 L_VAL_PEAK_MAX = 8e9
+# GAN training (gan_train): the shipped MSRGAN, ESRGAN and VideoGAN YAMLs
+# at their batch and crop (VideoGAN: 4 per GPU x 8 GPUs in one process, 5
+# frames: the PCD batch n = 160 at 32/16/8 px), a warm step and GAN_STEPS
+# timed ones; then from one seeded state a batch-GAN_SMALL_BATCH step pair
+# on the card and on the CPU with net_d_init_iters 1 (step 1: the gate,
+# step 2: G steps), G's and D's gradients and D's running statistics
+# within STEP_GRAD_TOL of each tensor's largest entry
+GAN_STEPS = 3
+GAN_SMALL_BATCH = 2
+# GAN_GRAD_NOTE: how the GAN pair check holds gradients. A seeded
+# discriminator gives the seeded real images and the generator's output
+# nearly the same logit (a gap of ~5e-4), so its gradient, and G's through
+# it and through the L1 loss's signs, are small differences of large
+# terms. Against float64, one MSRGAN D step's gradient is off by 0.2-1%
+# (relative L2; its worst tensor 3.5-10%) on the CPU in float32 at batch 2
+# to 16, and by 3% on an NVIDIA H100 80GB HBM3 at 700 W (its worst tensor,
+# conv4_1.weight, 29%, 1.2e-5 with cuDNN off); every path is exact in
+# float64 (PERF.md). So each network's gradient is held as a whole to
+# float64's, and where float32 cannot resolve STEP_GRAD_TOL (the CPU's own
+# gap above a tenth of it) by its direction.
+GAN_GRAD_COS_MIN = 0.99
+GAN_N = 160
+GAN_LEVELS = {'L1': (32, 32), 'L2': (16, 16), 'L3': (8, 8)}
+SR_TRAIN_STEPS = 2
+# image_sr_test: one 64x64 LQ crop per network, card against the CPU path
+# (TF32 off), relative to max|out|: fp32 through up to ~400 convolutions
+# (RCAN) with cuDNN's and the CPU's algorithms
+IMAGE_SR_CROP = 64
+IMAGE_SR_TOL = 3e-4
 L_CUTS = ['pretrain: the published EDVR-L checkpoint (not in the repo) -> '
           'seeded weights (torch seed 0, BasicSR init) with each DCN pack\'s '
           f'offset rows drawn and scaled to offsets of up to {OFFSET_PX} px, '
@@ -811,13 +873,16 @@ def dcn_fwd_check(args, tag, ph):
 def device_ms_per_call(fn, tries=3):
     """The device ms per call of all the CUDA kernels ``fn`` launches, from
     ``torch.profiler`` (10 calls after a warm one); a trace with no device
-    time is taken again, up to ``tries`` times, then fails."""
+    time is taken again, up to ``tries`` times. Then None, "not measured":
+    the sandbox's CUPTI tracing sometimes records nothing for a short
+    kernel, and the call's CUDA-event time (``ms``) stands beside it."""
     for _ in range(tries):
         ms = sum(kernel_ms_per_call(fn).values())
         if ms > 0:
             return ms
-    raise AssertionError(f'torch.profiler recorded no device time in '
-                         f'{tries} traces')
+    print(f'chip_smoke: torch.profiler recorded no device time in {tries} '
+          'traces; device ms not measured', file=sys.stderr, flush=True)
+    return None
 
 
 def blend_check(cases, c_per, tag, ph):
@@ -2379,6 +2444,8 @@ def main():
         with open(out_path) as f:
             edvr_l = json.load(f)
 
+    gan_fwd, gan_bwd, gan_launches = gan_sr_phases(state, smi)
+
     l1 = results['L1']
     kernel = {'name': 'dcn_fwd', 'route': 'cuda',
               'source': 'edvr_tpu_torch/csrc/dcn_fwd.cu',
@@ -2583,6 +2650,18 @@ def main():
         kernel_gather.update({f'{key}_bf16_{level}': r[key] for key in (
             'ms', 'device_ms', 'plain_ms', 'bound_ms', 'library_ms',
             'library_device_ms')})
+    # VideoGAN (gan_train): the fp32 forward and backward at n 160,
+    # 32/16/8 px (gan_<level>), and the launches of its run
+    for entry, res in ((kernel, gan_fwd), (kernel_bwd, gan_bwd)):
+        entry['launches_gan_train'] = gan_launches['VideoGAN_EDVR_M'][
+            entry['name']]
+        entry['max_abs_err'] = max(entry['max_abs_err'], *(
+            r['max_abs_err'] for r in res.values()))
+        for level, r in res.items():
+            entry.update({f'{key}_gan_{level}': r[key] for key in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_ms_fp32_pipe')})
+    for level, r in gan_fwd.items():
+        kernel[f'library_ms_gan_{level}'] = r['library_ms']
     # the ablation variants: their main path is the timing tool's run
     kernels_ablate = [
         {'name': f'dcn_fwd_ablate_{mode}_{dname}', 'route': 'cuda',
@@ -2603,6 +2682,278 @@ def main():
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def gan_log_keys(opt):
+    """The log keys of a GAN step of ``opt``'s engine (JAX's names)."""
+    train = opt['train']
+    keys = {'l_g_gan', 'l_d_real', 'l_d_fake', 'out_d_real', 'out_d_fake'}
+    if train.get('pixel_opt'):
+        keys.add('l_g_pix')
+    percep = train.get('perceptual_opt') or {}
+    if percep.get('perceptual_weight', 1.0 if percep else 0) > 0:
+        keys.add('l_g_percep')
+    if percep.get('style_weight', 0) > 0:
+        keys.add('l_g_style')
+    return keys
+
+
+def gan_pair_check(rel, force):
+    """From one seeded state, the GAN engine of ``options/train/<rel>`` on
+    the card, on the CPU and on the CPU in float64 (the reference), with
+    ``net_d_init_iters`` 1 and a batch of GAN_SMALL_BATCH. Step 1 (the
+    gate) leaves G and its Adam state as they were on the card and moves
+    D. Then the card's D is copied into both CPU models, so that step 2 (G
+    steps) starts from one state on all three. D's running statistics
+    after each step are held to the CPU's within STEP_GRAD_TOL of each
+    buffer's largest entry; each step's D gradient and step 2's G gradient
+    (each network as a whole, GAN_GRAD_NOTE) to float64's within
+    STEP_GRAD_TOL (relative L2), or, where the CPU's own float32 misses
+    float64 by more than a tenth of that (the check cannot resolve it
+    there), by a cosine of at least GAN_GRAD_COS_MIN. Returns the gaps."""
+    from edvr_tpu_torch.tools import gan_sr
+    force = [*force, 'train:net_d_init_iters=1', 'num_gpu=1',
+             f'datasets:train:batch_size_per_gpu={GAN_SMALL_BATCH}']
+    card = gan_sr.train_model(rel, 'cuda', force)[1]
+    cpu = gan_sr.train_model(rel, 'cpu', force)[1]
+    opt, ref = gan_sr.train_model(rel, 'cpu', force)
+    for module in (ref.net_g, ref.net_d, ref.cri_perceptual):
+        if module is not None:
+            module.double()
+    batches = gan_sr.train_batches(opt, 2, seed=SEED + 1)
+
+    def state(net):
+        return {k: v.detach().cpu().clone()
+                for k, v in net.state_dict().items()}
+
+    def grads(model, net):
+        return {n: p.grad.detach().cpu().double()
+                for n, p in getattr(model, net).named_parameters()}
+
+    g0, d0 = state(card.net_g), state(card.net_d)
+    gaps, bad = {}, []
+    for it, batch in enumerate(batches, 1):
+        for m in (card, cpu):
+            m.feed_data(batch)
+            m.optimize_parameters(it)
+        ref.lq, ref.gt = batch['lq'].double(), batch['gt'].double()
+        ref.optimize_parameters(it)
+        for net in (['net_d'] if it == 1 else ['net_g', 'net_d']):
+            want = grads(ref, net)
+            got = grads(card, net)
+            card_l2, _ = grad_gaps(got, want)
+            cpu_l2, _ = grad_gaps(grads(cpu, net), want)
+            total_cos = _total_cosine(got, want)
+            key = f'step{it}_{net}_grad'
+            gaps[key] = dict(card_vs_fp64_rel_l2=card_l2,
+                             cpu_fp32_vs_fp64_rel_l2=cpu_l2,
+                             card_vs_fp64_cosine=total_cos)
+            resolved = cpu_l2 <= STEP_GRAD_TOL / 10
+            if not (card_l2 <= STEP_GRAD_TOL or (
+                    not resolved and total_cos >= GAN_GRAD_COS_MIN)):
+                bad.append((key, gaps[key]))
+        cpu_bufs = dict(cpu.net_d.named_buffers())
+        stats = {n: rel_err(b.cpu(), cpu_bufs[n])
+                 for n, b in card.net_d.named_buffers() if 'running' in n}
+        worst = max(stats, key=stats.get)
+        gaps[f'step{it}_net_d_stats'] = [worst, stats[worst]]
+        if not stats[worst] <= STEP_GRAD_TOL:
+            bad.append((f'step{it}_net_d_stats', stats[worst]))
+        if it == 1:
+            g1, d1 = state(card.net_g), state(card.net_d)
+            g_moved = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+            d_still = [k for k, _ in card.net_d.named_parameters()
+                       if torch.equal(d0[k], d1[k])]
+            if g_moved or card.optimizer_g.state or d_still:
+                raise AssertionError(
+                    f'{rel}: net_d_init_iters gate: G moved {g_moved[:3]}, '
+                    f'G Adam state {len(card.optimizer_g.state)} entries, D '
+                    f'still {d_still[:3]}')
+            cpu.net_d.load_state_dict(d1)
+            ref.net_d.load_state_dict(d1)
+    print(json.dumps({'gan_pair_check': rel, **gaps}), flush=True)
+    if bad:
+        raise AssertionError(f'{rel}: card vs CPU: {bad}')
+    del card, cpu, ref
+    return gaps
+
+
+def _total_cosine(got, want):
+    """The cosine of two gradients, every tensor of a network together."""
+    num = sum((got[n] * w).sum().item() for n, w in want.items())
+    den = (sum(g.square().sum().item() for g in got.values())
+           * sum(w.square().sum().item() for w in want.values())) ** 0.5
+    return num / max(den, 1e-300)
+
+
+def gan_train_runs(golden_pth):
+    """The gan_train phase's configurations (the train CLI's choice of
+    cuDNN algorithms for them is PyTorch's default, this process's):
+    returns their readings and the launches of each run."""
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.tools import gan_sr
+    from edvr_tpu_torch.train import train_cudnn_env
+    runs, launches = {}, {}
+    for name, rel in gan_sr.GAN_TRAIN.items():
+        force = ([f'path:pretrain_network_g={golden_pth}']
+                 if 'EDVR' in rel else [])
+        opt, model = gan_sr.train_model(rel, 'cuda', force)
+        if train_cudnn_env(opt['network_g']):
+            raise AssertionError(f'{name}: the train CLI would take '
+                                 f'{train_cudnn_env(opt["network_g"])}, not '
+                                 "this process's default")
+        batches = gan_sr.train_batches(opt, GAN_STEPS + 1, seed=SEED)
+        native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+        r = gan_sr.run_steps(model, batches)
+        launches[name] = dict(native.LAUNCHES)
+        want_keys = gan_log_keys(opt)
+        for log in r.pop('logs'):
+            if set(log) != want_keys or not all(
+                    np.isfinite(v) for v in log.values()):
+                raise AssertionError(f'{name}: log {log}, expected finite '
+                                     f'{sorted(want_keys)}')
+        r['last_log'] = log
+        per_step = (dict(dcn_fwd=4, dcn_bwd=4) if opt['network_g']['type']
+                    == 'EDVR' else {})
+        if any(c != per_step for c in r['launches']):
+            raise AssertionError(f'{name}: launches per step '
+                                 f"{r['launches']}, expected {per_step}")
+        r['launches_per_step'] = r.pop('launches')[0]
+        del model, batches
+        r['card_vs_cpu_worst'] = gan_pair_check(rel, force)
+        runs[name] = dict(yml=f'options/train/{rel}',
+                          network_g=opt['network_g']['type'], **r)
+    return runs, launches
+
+
+def gan_sr_phases(state, smi):
+    """kernel_gan_<level>, gan_train, sr_train and (in a child process)
+    image_sr_test; ``state`` is the golden EDVR-M state dict. Returns the
+    kernels' readings at VideoGAN's shapes and gan_train's launches."""
+    # the DCN kernels at VideoGAN's shapes (n 160: 32 clips x 5 frames of
+    # 32x32 LQ crops; 32/16/8 px), from a generator of their own
+    from edvr_tpu_torch.tools import gan_sr
+    from edvr_tpu_torch.train import train_cudnn_env
+    gan_gen = torch.Generator().manual_seed(SEED + 20)
+    gan_fwd, gan_bwd = {}, {}
+    for level, (h, w) in GAN_LEVELS.items():
+        with Phase(f'kernel_gan_{level}') as ph:
+            args = dcn_inputs(h, w, gan_gen, n=GAN_N)
+            gan_fwd[level] = dcn_fwd_check(args, f'gan_{level}', ph)
+            gan_bwd[level] = bwd_check(args, BWD_TOL, f'gan_{level}',
+                                       gan_gen)
+            ph.info.update(bwd=gan_bwd[level], card=smi)
+            del args
+
+    with Phase('gan_train') as ph, tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the engines' experiment paths
+        golden_pth = osp.join(tmp, 'edvr_m_golden.pth')
+        torch.save({'params': state}, golden_pth)
+        gan_runs, gan_launches = gan_train_runs(golden_pth)
+        os.chdir(cwd)
+        ph.info.update(runs=gan_runs, launches=gan_launches,
+                       cuts=gan_sr.TRAIN_CUTS,
+                       cudnn="PyTorch's default (the train CLI's choice for "
+                             'these networks)',
+                       grad_tol=STEP_GRAD_TOL, card=smi)
+
+    with Phase('sr_train') as ph:
+        sr_runs = {}
+        for name, rel in gan_sr.SR_TRAIN.items():
+            opt, model = gan_sr.train_model(rel, 'cuda')
+            if train_cudnn_env(opt['network_g']):
+                raise AssertionError(f'{name}: the train CLI would take '
+                                     'another cuDNN choice')
+            r = gan_sr.run_steps(model, gan_sr.train_batches(
+                opt, SR_TRAIN_STEPS + 1, seed=SEED))
+            logs = r.pop('logs')
+            if not all(np.isfinite(v) for log in logs for v in log.values()):
+                raise AssertionError(f'{name}: losses {logs}')
+            if any(r['launches']):
+                raise AssertionError(f'{name}: kernel launches '
+                                     f"{r['launches']}")
+            del r['launches']
+            sr_runs[name] = dict(yml=f'options/train/{rel}',
+                                 network=opt['network_g'], last_log=logs[-1],
+                                 **r)
+            del model
+        ph.info.update(runs=sr_runs, cuts=gan_sr.TRAIN_CUTS[:1] +
+                       gan_sr.TRAIN_CUTS[2:], card=smi)
+
+    # the image-SR test configurations in a child process under the test
+    # CLI's cuDNN policy, as python -m edvr_tpu_torch.test runs them
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = osp.join(tmp, 'image_sr.json')
+        child = subprocess.run([sys.executable, osp.abspath(__file__),
+                                '--image-sr', out_path], check=False)
+        if child.returncode:
+            raise AssertionError(f'the image_sr_test phase failed (exit '
+                                 f'{child.returncode})')
+        with open(out_path) as f:
+            image_sr = json.load(f)
+        if set(image_sr) != set(gan_sr.TEST_YML):
+            raise AssertionError(f'image_sr_test ran {sorted(image_sr)}')
+    return gan_fwd, gan_bwd, gan_launches
+
+
+def image_sr_main(out_path):
+    """The image_sr_test phase, as ``python -m edvr_tpu_torch.test`` runs
+    it: the test CLI's cuDNN policy applied before the first convolution,
+    TF32 off (``parse_options``); the readings written to ``out_path``."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false; this run '
+              'needs a CUDA card', file=sys.stderr)
+        return 1
+    from edvr_tpu_torch.test import use_inference_cudnn_policy
+    from edvr_tpu_torch.tools import gan_sr
+    use_inference_cudnn_policy()
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    runs = {}
+    with Phase('image_sr_test') as ph, tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the results/ tree the test CLI writes
+        pairs = osp.join(tmp, 'pairs')
+        for name in gan_sr.IMAGE_SR:
+            model, loader, r = gan_sr.run_test(name, pairs)
+            if not (set(r['metrics']) == {'psnr', 'ssim'} and all(
+                    np.isfinite(v) for v in r['metrics'].values())):
+                raise AssertionError(f'{name}: metrics {r["metrics"]}')
+            # one LQ crop: the card against the plain CPU path
+            crop = loader.dataset[0]['lq'][None, :, :IMAGE_SR_CROP,
+                                           :IMAGE_SR_CROP]
+            with torch.no_grad():
+                on_card = model.net_g(crop.cuda()).cpu()
+                on_cpu = copy.deepcopy(model.net_g).cpu()(crop)
+            gap = rel_err(on_card, on_cpu)
+            if not (torch.isfinite(on_card).all() and gap <= IMAGE_SR_TOL):
+                raise AssertionError(f'{name}: card vs CPU on a '
+                                     f'{IMAGE_SR_CROP}px crop: {gap} of '
+                                     f'max|out| > {IMAGE_SR_TOL}')
+            r.update(crop_vs_cpu_rel_to_max=gap, crop=IMAGE_SR_CROP)
+            runs[name] = r
+            del model, loader
+        _, _, wogt = gan_sr.run_test(gan_sr.WOGT, pairs)
+        if len(wogt['saved']) != gan_sr.IMAGES or wogt['metrics']:
+            raise AssertionError(f"woGT: wrote {wogt['saved']}, metrics "
+                                 f"{wogt['metrics']}")
+        runs[gan_sr.WOGT] = wogt
+        os.chdir(cwd)
+        ph.info.update(runs=runs, tol=IMAGE_SR_TOL,
+                       cudnn_env={k: os.environ.get(k) for k in (
+                           'TORCH_CUDNN_V8_API_DISABLED',
+                           'CUDNN_CONV_WSCAP_DBG')},
+                       cuts=['pretrain_network_g: not in the repository -> '
+                             "the option file's seed",
+                             'data: Set5/Set14/DIV2K -> seeded PNG pairs of '
+                             'the DIV2K validation size'],
+                       card=smi)
+    with open(out_path, 'w') as f:
+        json.dump(runs, f)
     return 0
 
 
@@ -2783,4 +3134,6 @@ if __name__ == '__main__':
         sys.exit(edvr_l_main(sys.argv[2]))
     if sys.argv[1:2] == ['--edvr-l-train']:
         sys.exit(edvr_l_train_main(sys.argv[2]))
+    if sys.argv[1:2] == ['--image-sr']:
+        sys.exit(image_sr_main(sys.argv[2]))
     sys.exit(main())

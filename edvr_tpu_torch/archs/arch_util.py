@@ -42,23 +42,56 @@ def lrelu(x, negative_slope: float = 0.1):
     return F.leaky_relu(x, negative_slope=negative_slope)
 
 
-class ResidualBlockNoBN(nn.Module):
-    """Conv-ReLU-Conv residual block without BN (reference:
-    arch_util.py:67-95); both convs start kaiming-normal scaled by 0.1
-    with zero bias (default_init_weights, arch_util.py:20-48)."""
+def default_init_weights(modules, scale=1.0):
+    """Kaiming-normal weights (fan_in, gain sqrt(2)) times ``scale`` and
+    zero biases for convolutions and linear layers (reference:
+    arch_util.py:20-48; ``edvr_tpu/archs/arch_util.py:43-55``)."""
+    with torch.no_grad():
+        for m in modules:
+            nn.init.kaiming_normal_(m.weight)
+            m.weight.mul_(scale)
+            if m.bias is not None:
+                m.bias.zero_()
 
-    def __init__(self, num_feat=64):
+
+class ResidualBlockNoBN(nn.Module):
+    """Conv-ReLU-Conv residual block without BN, the residual scaled by
+    ``res_scale`` (reference: arch_util.py:67-95;
+    ``edvr_tpu/archs/arch_util.py:101-123``). Without ``pytorch_init`` both
+    convs start kaiming-normal scaled by 0.1 with zero bias; with it they
+    keep torch's default."""
+
+    def __init__(self, num_feat=64, res_scale=1.0, pytorch_init=False):
         super().__init__()
+        self.res_scale = res_scale
         self.conv1 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
         self.conv2 = nn.Conv2d(num_feat, num_feat, 3, 1, 1)
-        with torch.no_grad():
-            for conv in (self.conv1, self.conv2):
-                nn.init.kaiming_normal_(conv.weight)
-                conv.weight.mul_(0.1)
-                conv.bias.zero_()
+        if not pytorch_init:
+            default_init_weights([self.conv1, self.conv2], 0.1)
 
     def forward(self, x):
-        return x + self.conv2(F.relu(self.conv1(x)))
+        return x + self.conv2(F.relu(self.conv1(x))) * self.res_scale
+
+
+class Upsample(nn.Sequential):
+    """Pixel-shuffle upsampler for scales 2^n and 3 (reference:
+    arch_util.py:98-118; ``edvr_tpu/archs/arch_util.py:126-149``): a 3x3
+    conv to 4 (or 9) x ``num_feat`` channels and a pixel shuffle per stage,
+    so the convs are children 0, 2, ..."""
+
+    def __init__(self, scale, num_feat):
+        layers = []
+        if scale & (scale - 1) == 0:
+            for _ in range(int(math.log2(scale))):
+                layers += [nn.Conv2d(num_feat, 4 * num_feat, 3, 1, 1),
+                           nn.PixelShuffle(2)]
+        elif scale == 3:
+            layers += [nn.Conv2d(num_feat, 9 * num_feat, 3, 1, 1),
+                       nn.PixelShuffle(3)]
+        else:
+            raise ValueError(f'scale {scale} is not supported. '
+                             'Supported scales: 2^n and 3.')
+        super().__init__(*layers)
 
 
 def make_layer(basic_block, num_basic_block: int, **kwarg):

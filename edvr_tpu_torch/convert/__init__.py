@@ -2,8 +2,9 @@
 
 ``jax_params_to_state_dict`` is the inverse of
 ``edvr_tpu/convert/torch_import.py``: it maps a flax parameter tree (as
-nested dicts of numpy arrays) onto BasicSR's flat state-dict keys, with
-conv kernels HWIO -> OIHW (the layers of the ported architectures).
+nested dicts of numpy arrays), and a BatchNorm ``batch_stats`` tree, onto
+BasicSR's flat state-dict keys, with conv kernels HWIO -> OIHW and Dense
+kernels transposed (the layers of the ported architectures).
 ``load_state_dict_file`` reads a BasicSR ``.pth`` or an ``edvr_tpu``
 ``.ckpt`` checkpoint into such a state dict.
 """
@@ -32,40 +33,85 @@ _MODULE_LIST_RE = re.compile(r'^(resblock_l1)_(\d+)$')
 CKPT_MAGIC = b'EDVRTPU.CKPT.v1\n'
 
 
-def _torch_key(path) -> str:
+# flax scopes ``<name>_<i>`` that are BasicSR ``nn.Sequential`` entries
+# ``<name>.<i>``: RCAN's ``rcab`` and ``attention``
+_SEQ_RE = re.compile(r'^(rcab|attention)_(\d+)$')
+# the Upsample's ``up_<i>`` conv is its ``nn.Sequential`` child 2 i (a pixel
+# shuffle follows each conv)
+_UP_RE = re.compile(r'^up_(\d+)$')
+# VGGFeatureExtractor's ``features_<index>`` (torchvision's layer index)
+_FEATURES_RE = re.compile(r'^features_(\d+)$')
+# flax leaf name -> BasicSR's: conv and Dense kernels and BatchNorm's
+# scale; in batch_stats, BatchNorm's running statistics
+_LEAF = {'kernel': 'weight', 'scale': 'weight'}
+_STATS_LEAF = {'mean': 'running_mean', 'var': 'running_var'}
+
+
+def _torch_key(path, vgg_names=None, leaf=_LEAF) -> str:
     tokens = []
-    for scope in path[:-1]:
-        if scope == 'conv':  # the flax Conv2d wrapper's inner scope
+    scopes = path[:-1]
+    for i, scope in enumerate(scopes):
+        # the flax Conv2d wrapper's inner scope; of the modules named
+        # ``conv``, RCAN's ResidualGroup's (a ``block_<i>`` child) keeps its
+        # name, WarpAlignPack's dense conv is the pack's own weight
+        if scope == 'conv' and (i == len(scopes) - 1 or not re.fullmatch(
+                r'block_\d+', scopes[i - 1] if i else '')):
             continue
         m = re.fullmatch(r'block_(\d+)', scope)
         if m:  # make_layer's Sequential children
             tokens.append(m.group(1))
             continue
-        m = _MODULE_DICT_RE.match(scope) or _MODULE_LIST_RE.match(scope)
+        m = _UP_RE.match(scope)
+        if m:
+            tokens.append(str(2 * int(m.group(1))))
+            continue
+        m = _FEATURES_RE.match(scope)
+        if m and vgg_names is not None:
+            tokens += ['vgg_net', vgg_names[int(m.group(1))]]
+            continue
+        m = (_MODULE_DICT_RE.match(scope) or _MODULE_LIST_RE.match(scope)
+             or _SEQ_RE.match(scope))
         tokens.extend(m.groups() if m else [scope])
-    tokens.append('weight' if path[-1] == 'kernel' else path[-1])
+    tokens.append(leaf.get(path[-1], path[-1]))
     return '.'.join(tokens)
 
 
 def _torch_layout(value: np.ndarray) -> np.ndarray:
-    # conv kernels (flax 'kernel', DCNv2Pack 'weight') HWIO -> OIHW
-    return value.transpose(3, 2, 0, 1) if value.ndim == 4 else value
+    # conv kernels (flax 'kernel', DCNv2Pack 'weight') HWIO -> OIHW, Dense
+    # kernels (in, out) -> (out, in)
+    if value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    return value.T if value.ndim == 2 else value
 
 
-def jax_params_to_state_dict(params: dict) -> dict:
-    """Flax params (nested dicts of arrays) -> {BasicSR key: tensor}."""
+def jax_params_to_state_dict(params: dict, batch_stats: dict | None = None,
+                             vgg_type: str | None = None) -> dict:
+    """Flax params (nested dicts of arrays) -> {BasicSR key: tensor}.
+
+    ``batch_stats`` (flax's BatchNorm collection) adds each BatchNorm's
+    ``running_mean``, ``running_var`` and a zero ``num_batches_tracked``.
+    ``vgg_type`` names a VGGFeatureExtractor's ``features_<index>`` scopes
+    by that VGG's layer names (``vgg_net.conv1_1``, ...)."""
+    vgg_names = None
+    if vgg_type is not None:
+        from edvr_tpu_torch.archs.vgg_arch import layer_names
+        vgg_names = layer_names(vgg_type)
     out = {}
 
-    def walk(node, path):
+    def walk(node, path, leaf):
         for k, v in node.items():
             if isinstance(v, dict):
-                walk(v, path + (k,))
-            else:
-                arr = _torch_layout(np.asarray(v))
-                out[_torch_key(path + (k,))] = torch.from_numpy(
-                    np.array(arr, dtype=np.float32, order='C'))
+                walk(v, path + (k,), leaf)
+                continue
+            key = _torch_key(path + (k,), vgg_names, leaf)
+            out[key] = torch.from_numpy(np.array(
+                _torch_layout(np.asarray(v)), dtype=np.float32, order='C'))
+            if leaf is _STATS_LEAF and k == 'mean':
+                out[key.rsplit('.', 1)[0] + '.num_batches_tracked'] = \
+                    torch.tensor(0)
 
-    walk(params, ())
+    walk(params, (), _LEAF)
+    walk(batch_stats or {}, (), _STATS_LEAF)
     return out
 
 
@@ -76,7 +122,8 @@ def load_state_dict_file(path: str, param_key: str = 'params') -> dict:
     ``param_key``, with any DDP ``module.`` prefix stripped
     (reference: base_model.py:238-262). Any other file must be an
     ``edvr_tpu`` native checkpoint (magic header, then a pickled tree of
-    numpy arrays); its flax params are converted.
+    numpy arrays); its flax params, and its ``batch_stats`` if it has
+    them, are converted.
     """
     if path.endswith('.pth'):
         ckpt = torch.load(path, map_location='cpu', weights_only=True)
@@ -91,4 +138,7 @@ def load_state_dict_file(path: str, param_key: str = 'params') -> dict:
                 f'(missing the {CKPT_MAGIC!r} header); refusing to unpickle '
                 'it')
         blob = pickle.load(f)
-    return jax_params_to_state_dict(blob.get(param_key, blob))
+    # a discriminator's checkpoint carries its BatchNorm statistics beside
+    # the params (edvr_tpu/models/srgan_model.py:248-252)
+    return jax_params_to_state_dict(blob.get(param_key, blob),
+                                    blob.get('batch_stats'))

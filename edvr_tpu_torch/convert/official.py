@@ -1,10 +1,13 @@
 """Official third-party checkpoints into BasicSR naming, the port's copy of
-``edvr_tpu/convert/official.py:20-166`` (reference:
+``edvr_tpu/convert/official.py:20-215`` (reference:
 scripts/model_conversion/convert_models.py) for the architectures the port
-has: EDVR. Other families' remaps come with their architectures.
+has: EDVR, EDSR, RCAN and ESRGAN (RRDBNet). Other families' remaps come
+with their architectures.
 
     python -m edvr_tpu_torch.convert.official --source EDVR \\
         --pth EDVR_official.pth --out net_g.pth
+    python -m edvr_tpu_torch.convert.official --source EDSR --num_block 32 \\
+        --pth EDSR_Lx4_official.pth --out net_g.pth
 
 writes a BasicSR ``.pth`` (the state dict under ``params``) that
 ``edvr_tpu_torch.convert.load_state_dict_file`` and the CLIs'
@@ -167,7 +170,60 @@ def remap_edvr(state):
     return _apply(state, rules, passthrough)
 
 
-REMAPPERS = {'EDVR': remap_edvr}
+def remap_edsr(state, num_block=16):
+    """EDSR-PyTorch (thstkdgus35) naming -> BasicSR EDSR
+    (convert_models.py:111-144, inverted; EDSR-L has 32 blocks)."""
+    rules = [
+        (r'head\.0\.(.*)', r'conv_first.\1'),
+        (rf'body\.{num_block}\.(.*)', r'conv_after_body.\1'),
+        (r'body\.(\d+)\.body\.0\.(.*)', r'body.\1.conv1.\2'),
+        (r'body\.(\d+)\.body\.2\.(.*)', r'body.\1.conv2.\2'),
+        (r'tail\.0\.0\.(.*)', r'upsample.0.\1'),
+        (r'tail\.0\.2\.(.*)', r'upsample.2.\1'),
+        (r'tail\.1\.(.*)', r'conv_last.\1'),
+    ]
+    return _apply(state, rules)
+
+
+def remap_rcan(state, num_group=10, num_block=20):
+    """yulunzhang/RCAN naming -> BasicSR RCAN
+    (convert_models.py:147-181, inverted)."""
+    rules = [
+        (r'head\.0\.(.*)', r'conv_first.\1'),
+        (rf'body\.{num_group}\.(.*)', r'conv_after_body.\1'),
+        # channel attention: conv_du.<i> is attention.<i + 1> (the pool is
+        # attention.0)
+        (r'body\.(\d+)\.body\.(\d+)\.body\.(\d+)\.conv_du\.(\d+)\.(.*)',
+         lambda m: f'body.{m.group(1)}.residual_group.{m.group(2)}.rcab.'
+                   f'{m.group(3)}.attention.{int(m.group(4)) + 1}.'
+                   f'{m.group(5)}'),
+        (rf'body\.(\d+)\.body\.{num_block}\.(.*)', r'body.\1.conv.\2'),
+        (r'body\.(\d+)\.body\.(\d+)\.body\.(\d+)\.(.*)',
+         r'body.\1.residual_group.\2.rcab.\3.\4'),
+        (r'tail\.0\.0\.(.*)', r'upsample.0.\1'),
+        (r'tail\.0\.2\.(.*)', r'upsample.2.\1'),
+        (r'tail\.1\.(.*)', r'conv_last.\1'),
+    ]
+    return _apply(state, rules)
+
+
+def remap_esrgan(state):
+    """Old official ESRGAN (RRDB_ESRGAN_x4.pth) naming -> BasicSR RRDBNet
+    (convert_models.py:184-211, inverted)."""
+    rules = [
+        (r'RRDB_trunk\.(\d+)\.RDB(\d)\.(.*)', r'body.\1.rdb\2.\3'),
+        (r'trunk_conv\.(.*)', r'conv_body.\1'),
+        (r'upconv(\d)\.(.*)', r'conv_up\1.\2'),
+        (r'HRconv\.(.*)', r'conv_hr.\1'),
+    ]
+    passthrough = ('conv_first.', 'conv_last.')
+    return _apply(state, rules, passthrough)
+
+
+REMAPPERS = {'EDVR': remap_edvr, 'EDSR': remap_edsr, 'RCAN': remap_rcan,
+             'ESRGAN': remap_esrgan, 'RRDBNet': remap_esrgan}
+# the depth arguments each family's remap takes
+_DEPTH_ARGS = {'EDSR': ('num_block',), 'RCAN': ('num_group', 'num_block')}
 
 
 def main(args=None):
@@ -186,10 +242,17 @@ def main(args=None):
                         help='the BasicSR .pth to write')
     parser.add_argument('--param_key', default=None,
                         help='sub-dict key in the official file')
+    parser.add_argument('--num_block', type=int, default=None,
+                        help='EDSR: residual blocks (16 M, 32 L); RCAN: '
+                        'blocks per group (20)')
+    parser.add_argument('--num_group', type=int, default=None,
+                        help='RCAN: residual groups (10)')
     args = parser.parse_args(args)
 
     state = load_state_dict_file(args.pth, args.param_key)
-    renamed, unmatched = REMAPPERS[args.source](state)
+    depth = {k: getattr(args, k) for k in _DEPTH_ARGS.get(args.source, ())
+             if getattr(args, k) is not None}
+    renamed, unmatched = REMAPPERS[args.source](state, **depth)
     if unmatched:
         print(f'WARNING: {len(unmatched)} official keys without a rename '
               f'rule: {unmatched}', file=sys.stderr)

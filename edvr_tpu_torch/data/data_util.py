@@ -2,10 +2,13 @@
 (reference: basicsr/data/data_util.py), the counterparts of
 ``edvr_tpu/data/data_util.py``. Image sequences here are (t, c, h, w)
 float32 RGB [0, 1] tensors, as in the reference; ``cv2`` is imported only
-where images are read.
+where images are read. The path helpers are the disk modes only: LMDB is
+not ported (ROADMAP A.9).
 """
 
 from __future__ import annotations
+
+from os import path as osp
 
 import numpy as np
 import torch
@@ -60,3 +63,55 @@ def generate_frame_indices(crt_idx: int, max_frame_num: int, num_frames: int,
         return i + num_frames if i < 0 else i - num_frames  # circle
 
     return [remap(i) for i in range(crt_idx - half, crt_idx + half + 1)]
+
+
+def _pair_of(folders, keys):
+    if len(folders) != 2 or len(keys) != 2:
+        raise ValueError(
+            f'need exactly (input, gt) folders and keys, got {len(folders)} '
+            f'folders / {len(keys)} keys')
+    return folders[0], folders[1], keys[0], keys[1]
+
+
+def paired_paths_from_meta_info_file(folders, keys, meta_info_file,
+                                     filename_tmpl):
+    """Paired path dicts from a meta-info manifest of GT names
+    (reference: data_util.py:158-206)."""
+    in_dir, gt_dir, in_key, gt_key = _pair_of(folders, keys)
+    with open(meta_info_file) as fh:
+        gt_names = [line.split(' ')[0] for line in fh]
+    out = []
+    for gt_name in gt_names:
+        stem, ext = osp.splitext(osp.basename(gt_name))
+        out.append({f'{in_key}_path':
+                    osp.join(in_dir, filename_tmpl.format(stem) + ext),
+                    f'{gt_key}_path': osp.join(gt_dir, gt_name)})
+    return out
+
+
+def paired_paths_from_folder(folders, keys, filename_tmpl):
+    """Paired path dicts by scanning two folders: each GT name's input is
+    ``filename_tmpl`` of its stem with the same extension
+    (reference: data_util.py:209-247)."""
+    in_dir, gt_dir, in_key, gt_key = _pair_of(folders, keys)
+    in_names = set(scandir(in_dir))
+    gt_names = list(scandir(gt_dir))
+    if len(in_names) != len(gt_names):
+        raise ValueError(
+            f'{in_key} folder has {len(in_names)} images but {gt_key} '
+            f'folder has {len(gt_names)}')
+    out = []
+    for gt_name in gt_names:
+        stem, ext = osp.splitext(osp.basename(gt_name))
+        in_name = filename_tmpl.format(stem) + ext
+        if in_name not in in_names:
+            raise ValueError(
+                f'{in_name} (paired with {gt_name}) missing from {in_dir}')
+        out.append({f'{in_key}_path': osp.join(in_dir, in_name),
+                    f'{gt_key}_path': osp.join(gt_dir, gt_name)})
+    return out
+
+
+def paths_from_folder(folder):
+    """Every image path under ``folder`` (reference: data_util.py:250-262)."""
+    return [osp.join(folder, p) for p in scandir(folder)]

@@ -37,6 +37,17 @@ class BaseModel:
         self.schedulers = {}
         self.log_dict = {}
 
+    def validation(self, dataloader, current_iter, tb_logger,
+                   save_img=False):
+        """Dispatch to dist/nondist validation (reference:
+        base_model.py:37-50; ``edvr_tpu/models/base_model.py:154-165``)."""
+        if self.opt.get('dist'):
+            self.dist_validation(dataloader, current_iter, tb_logger,
+                                 save_img)
+        else:
+            self.nondist_validation(dataloader, current_iter, tb_logger,
+                                    save_img)
+
     def load_network(self, net, path, strict=True, param_key='params'):
         """Load weights from a BasicSR ``.pth`` or an ``edvr_tpu``
         checkpoint into ``net`` (reference: base_model.py:203-262)."""

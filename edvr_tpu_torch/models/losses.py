@@ -1,11 +1,17 @@
-"""Pixel losses with the reference's class API (reference:
-basicsr/models/losses/losses.py:28-122 and loss_util.py), the counterparts
-of ``edvr_tpu/models/losses.py``: an elementwise core, an optional
-elementwise weight, then a 'none' / 'mean' / 'sum' reduction."""
+"""Losses with the reference's class API (reference:
+basicsr/models/losses/losses.py and loss_util.py), the counterparts of
+``edvr_tpu/models/losses.py``: pixel losses (an elementwise core, an
+optional elementwise weight, then a 'none' / 'mean' / 'sum' reduction), the
+weighted TV loss, the GAN losses and the VGG perceptual and style loss.
+The StyleGAN2 regularizers are not ported (ROADMAP A.13)."""
 
 from __future__ import annotations
 
+import os
+
 import torch
+from torch import nn
+from torch.nn import functional as F
 
 from edvr_tpu_torch.utils.registry import LOSS_REGISTRY
 
@@ -67,6 +73,144 @@ class CharbonnierLoss(_PixelLoss):
 
     def core(self, diff):
         return torch.sqrt(diff ** 2 + self.eps)
+
+
+@LOSS_REGISTRY.register()
+class WeightedTVLoss(L1Loss):
+    """Weighted total variation: the mean |difference| of vertical and of
+    horizontal neighbours, each under the weight's matching slice
+    (reference: losses.py:125-143; ``edvr_tpu/models/losses.py:87-103``,
+    NCHW here)."""
+
+    def __init__(self, loss_weight=1.0):
+        super().__init__(loss_weight=loss_weight)
+
+    def __call__(self, pred, weight=None):
+        wy = weight[:, :, :-1, :] if weight is not None else None
+        wx = weight[:, :, :, :-1] if weight is not None else None
+        y_diff = super().__call__(pred[:, :, :-1, :], pred[:, :, 1:, :],
+                                  weight=wy)
+        x_diff = super().__call__(pred[:, :, :, :-1], pred[:, :, :, 1:],
+                                  weight=wx)
+        return x_diff + y_diff
+
+
+@LOSS_REGISTRY.register()
+class GANLoss:
+    """vanilla (BCE with logits), lsgan, wgan, wgan_softplus and hinge
+    (reference: losses.py:262-370; ``edvr_tpu/models/losses.py:105-149``).
+    ``loss_weight`` applies on the generator side only."""
+
+    def __init__(self, gan_type, real_label_val=1.0, fake_label_val=0.0,
+                 loss_weight=1.0):
+        if gan_type not in ('vanilla', 'lsgan', 'wgan', 'wgan_softplus',
+                            'hinge'):
+            raise NotImplementedError(
+                f'GAN type {gan_type} is not implemented.')
+        self.gan_type = gan_type
+        self.loss_weight = loss_weight
+        self.real_label_val = real_label_val
+        self.fake_label_val = fake_label_val
+
+    def _core(self, x, target_is_real, is_disc):
+        label = self.real_label_val if target_is_real else \
+            self.fake_label_val
+        if self.gan_type == 'vanilla':
+            return F.binary_cross_entropy_with_logits(
+                x, torch.full_like(x, label))
+        if self.gan_type == 'lsgan':
+            return ((x - label) ** 2).mean()
+        if self.gan_type == 'wgan':
+            return -x.mean() if target_is_real else x.mean()
+        if self.gan_type == 'wgan_softplus':
+            return F.softplus(-x if target_is_real else x).mean()
+        if is_disc:  # hinge
+            return F.relu(1 + (-x if target_is_real else x)).mean()
+        return -x.mean()
+
+    def __call__(self, x, target_is_real, is_disc=False):
+        loss = self._core(x, target_is_real, is_disc)
+        return loss if is_disc else loss * self.loss_weight
+
+
+@LOSS_REGISTRY.register()
+class PerceptualLoss(nn.Module):
+    """Perceptual and style (Gram) loss on VGG features
+    (reference: losses.py:146-259; ``edvr_tpu/models/losses.py:206-294``).
+
+    The VGG is frozen (no gradients to its parameters; its batch-norm
+    layers, in the ``_bn`` variants, on their running statistics); gt's
+    features are taken without autograd. Its weights are
+    torchvision's ``vgg*.pth`` at ``vgg_pretrain_path`` (default
+    ``archs/vgg_arch.py::VGG_PRETRAIN_PATH``); without that file it warns
+    and uses a VGG drawn from seed 0, as the JAX loss does.
+    Returns ``(perceptual, style)``, each None when its weight is 0.
+    """
+
+    def __init__(self, layer_weights, vgg_type='vgg19', use_input_norm=True,
+                 range_norm=False, perceptual_weight=1.0, style_weight=0.,
+                 criterion='l1', vgg_pretrain_path=None):
+        from edvr_tpu_torch.archs.vgg_arch import (VGG_PRETRAIN_PATH,
+                                                   VGGFeatureExtractor,
+                                                   load_torchvision_vgg)
+        from edvr_tpu_torch.utils import get_root_logger
+        super().__init__()
+        if criterion not in ('l1', 'l2', 'fro'):
+            raise NotImplementedError(
+                f'{criterion} criterion has not been supported.')
+        self.perceptual_weight = perceptual_weight
+        self.style_weight = style_weight
+        self.layer_weights = layer_weights
+        self.criterion_type = criterion
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            self.vgg = VGGFeatureExtractor(
+                list(layer_weights), vgg_type=vgg_type,
+                use_input_norm=use_input_norm, range_norm=range_norm)
+        path = vgg_pretrain_path or VGG_PRETRAIN_PATH
+        if os.path.exists(path):
+            load_torchvision_vgg(self.vgg, path)
+        else:
+            get_root_logger().warning(
+                f'VGG pretrain weights not found at {path}; PerceptualLoss '
+                'uses a randomly initialized VGG (tests only).')
+        self.vgg.requires_grad_(False).eval()
+
+    def _crit(self, a, b):
+        if self.criterion_type == 'l1':
+            return (a - b).abs().mean()
+        if self.criterion_type == 'l2':
+            return ((a - b) ** 2).mean()
+        return torch.linalg.vector_norm(a - b)  # Frobenius
+
+    @staticmethod
+    def _gram_mat(x):
+        """(n, c, h, w) -> (n, c, c) Gram matrices / (c h w)
+        (reference: losses.py:249-259)."""
+        n, c, h, w = x.shape
+        feats = x.reshape(n, c, h * w)
+        return feats @ feats.transpose(1, 2) / (c * h * w)
+
+    def forward(self, x, gt):
+        x_features = self.vgg(x)
+        with torch.no_grad():
+            gt_features = self.vgg(gt.detach())
+
+        percep_loss = None
+        if self.perceptual_weight > 0:
+            percep_loss = sum(
+                self._crit(x_features[k], gt_features[k]) *
+                self.layer_weights[k] for k in x_features)
+            percep_loss = percep_loss * self.perceptual_weight
+
+        style_loss = None
+        if self.style_weight > 0:
+            style_loss = sum(
+                self._crit(self._gram_mat(x_features[k]),
+                           self._gram_mat(gt_features[k])) *
+                self.layer_weights[k] for k in x_features)
+            style_loss = style_loss * self.style_weight
+        return percep_loss, style_loss
 
 
 def build_loss(opt: dict):

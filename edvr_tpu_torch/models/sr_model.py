@@ -1,7 +1,8 @@
 """SR engine (reference: basicsr/models/sr_model.py), the counterpart of
 ``edvr_tpu/models/sr_model.py``: builds the network from ``network_g`` on
-the engine's device, loads its pretrained weights and, when training,
-takes Adam steps on a pixel loss.
+the engine's device, loads its pretrained weights, scores images from the
+test CLI or at ``val_freq`` (PSNR/SSIM tables, result images) and, when
+training, takes Adam steps on a pixel and/or perceptual loss.
 
 Parity with the JAX step: optax's ``add_decayed_weights`` then
 ``scale_by_adam`` then ``p - lr * u`` is ``torch.optim.Adam`` with
@@ -22,13 +23,15 @@ runs ``net_g`` itself, in f32.
 from __future__ import annotations
 
 from copy import deepcopy
+from os import path as osp
 
 import torch
 
 from edvr_tpu_torch.archs import define_network
+from edvr_tpu_torch.metrics import calculate_metric
 from edvr_tpu_torch.models.base_model import BaseModel
 from edvr_tpu_torch.models.losses import build_loss
-from edvr_tpu_torch.utils import get_root_logger
+from edvr_tpu_torch.utils import get_root_logger, imwrite, tensor2img
 from edvr_tpu_torch.utils.registry import MODEL_REGISTRY
 
 # train.mixed_precision values and the dtype each computes the network in
@@ -47,34 +50,46 @@ class SRModel(BaseModel):
             raise NotImplementedError(
                 f'mixed_precision {mp!r} is not supported (bf16 only).')
         self.compute_dtype = MIXED_PRECISION[mp]
-        # parameters are drawn from the option file's seed, on the CPU,
-        # without touching the caller's global generator
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(opt.get('manual_seed') or 0)
-            net = define_network(deepcopy(opt['network_g']))
-        n = sum(p.numel() for p in net.parameters())
-        get_root_logger().info(
-            f'Network: {net.__class__.__name__}, with parameters: {n:,d}')
-        load_path = opt['path'].get('pretrain_network_g')
-        if load_path is not None:
-            self.load_network(net, load_path,
-                              opt['path'].get('strict_load_g', True),
-                              opt['path'].get('param_key_g', 'params'))
-        self.net_g = net.to(self.device)
+        self.net_g = self.build_network('g', opt.get('manual_seed') or 0)
         if self.is_train:
             self.net_g.train()
             self.init_training_settings()
         else:
             self.net_g.eval()
 
-    def init_training_settings(self):
+    def build_network(self, suffix, seed):
+        """``network_<suffix>`` on the engine's device, its parameters
+        drawn from ``seed`` on the CPU without touching the caller's global
+        generator, then ``pretrain_network_<suffix>`` loaded if set."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            net = define_network(deepcopy(self.opt[f'network_{suffix}']))
+        n = sum(p.numel() for p in net.parameters())
+        get_root_logger().info(
+            f'Network: {net.__class__.__name__}, with parameters: {n:,d}')
+        path_opt = self.opt['path']
+        load_path = path_opt.get(f'pretrain_network_{suffix}')
+        if load_path is not None:
+            self.load_network(net, load_path,
+                              path_opt.get(f'strict_load_{suffix}', True),
+                              path_opt.get(f'param_key_{suffix}', 'params'))
+        return net.to(self.device)
+
+    def build_losses(self):
+        """The pixel and perceptual losses of the ``train`` block, each None
+        where it is not set."""
         train_opt = self.opt['train']
+        self.cri_pix = build_loss(train_opt['pixel_opt']) if train_opt.get(
+            'pixel_opt') else None
+        self.cri_perceptual = None
         if train_opt.get('perceptual_opt'):
-            raise NotImplementedError('the perceptual loss is not ported '
-                                      'yet (ROADMAP A.12)')
-        if not train_opt.get('pixel_opt'):
+            self.cri_perceptual = build_loss(
+                train_opt['perceptual_opt']).to(self.device)
+
+    def init_training_settings(self):
+        self.build_losses()
+        if self.cri_pix is None and self.cri_perceptual is None:
             raise ValueError('Both pixel and perceptual losses are None.')
-        self.cri_pix = build_loss(train_opt['pixel_opt'])
         self.setup_optimizers()
         self.setup_schedulers()
 
@@ -116,12 +131,28 @@ class SRModel(BaseModel):
                                          (lq.to(dt),))
         return out.float()
 
+    def content_losses(self, output, tag=''):
+        """The pixel, perceptual and style losses of ``output`` against
+        ``gt`` (those configured), as ``{f'l_{tag}pix': ..., ...}``."""
+        losses = {}
+        if self.cri_pix is not None:
+            losses[f'l_{tag}pix'] = self.cri_pix(output, self.gt)
+        if self.cri_perceptual is not None:
+            l_percep, l_style = self.cri_perceptual(output, self.gt)
+            if l_percep is not None:
+                losses[f'l_{tag}percep'] = l_percep
+            if l_style is not None:
+                losses[f'l_{tag}style'] = l_style
+        return losses
+
     def optimize_parameters(self, current_iter):
+        """One step; the losses are taken on the f32 output, under bf16 too
+        (``edvr_tpu/models/sr_model.py:171-185``)."""
         self.optimizer_g.zero_grad()
         self.output = self.train_forward(self.lq)
-        l_pix = self.cri_pix(self.output, self.gt)
-        l_pix.backward()
-        self.log_dict = {'l_pix': l_pix.detach()}
+        losses = self.content_losses(self.output)
+        sum(losses.values()).backward()
+        self.log_dict = {k: v.detach() for k, v in losses.items()}
         self.step_optimizers(current_iter)
 
     def step_optimizers(self, current_iter):
@@ -148,6 +179,61 @@ class SRModel(BaseModel):
         if hasattr(self, 'gt'):
             out['gt'] = self.gt.detach().cpu()
         return out
+
+    def dist_validation(self, dataloader, current_iter, tb_logger,
+                        save_img):
+        get_root_logger().info('Only support single process validation.')
+        self.nondist_validation(dataloader, current_iter, tb_logger,
+                                save_img)
+
+    def nondist_validation(self, dataloader, current_iter, tb_logger,
+                           save_img):
+        """Score each image of the (batch-1) loader and write its result
+        (reference: sr_model.py:125-184;
+        ``edvr_tpu/models/sr_model.py:236-305``)."""
+        dataset_name = dataloader.dataset.opt['name']
+        metrics = self.opt['val'].get('metrics')
+        if metrics is not None:
+            self.metric_results = {name: 0 for name in metrics}
+        cnt = 0
+        for val_data in dataloader:
+            img_name = osp.splitext(osp.basename(val_data['lq_path'][0]))[0]
+            self.feed_data(val_data)
+            self.test()
+            visuals = self.get_current_visuals()
+            metric_data = {'img1': tensor2img([visuals['result']])}
+            if 'gt' in visuals:
+                metric_data['img2'] = tensor2img([visuals['gt']])
+                del self.gt
+            del self.lq, self.output
+
+            if save_img:
+                vis = self.opt['path']['visualization']
+                if self.opt['is_train']:
+                    save_path = osp.join(vis, img_name,
+                                         f'{img_name}_{current_iter}.png')
+                else:
+                    suffix = self.opt['val'].get('suffix') or \
+                        self.opt['name']
+                    save_path = osp.join(vis, dataset_name,
+                                         f'{img_name}_{suffix}.png')
+                imwrite(metric_data['img1'], save_path)
+            if metrics is not None:
+                for name, opt_ in deepcopy(metrics).items():
+                    self.metric_results[name] += calculate_metric(
+                        metric_data, opt_)
+            cnt += 1
+        if metrics is not None:
+            for name in self.metric_results:
+                self.metric_results[name] /= cnt
+            self._log_validation_metric_values(current_iter, dataset_name)
+
+    def _log_validation_metric_values(self, current_iter, dataset_name):
+        # current_iter is an int while training, a label under the test CLI
+        log_str = f'Validation {dataset_name} (iter {current_iter})\n'
+        for metric, value in self.metric_results.items():
+            log_str += f'\t # {metric}: {value:.4f}\n'
+        get_root_logger().info(log_str)
 
     def save(self, epoch, current_iter):
         self.save_network(self.net_g, 'net_g', current_iter)

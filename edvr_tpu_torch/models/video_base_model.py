@@ -61,15 +61,10 @@ class VideoBaseModel(SRModel):
             self.metric_results[folder][frame_idx, metric_idx] += (
                 calculate_metric(dict(img1=result_img, img2=gt_img), opt_))
 
-    def validation(self, dataloader, current_iter, tb_logger,
-                   save_img=False):
-        """Score every frame of the dataset (one process: the JAX
-        package's ``nondist_validation`` delegates to ``dist_validation``,
-        ``edvr_tpu/models/video_base_model.py:216-220``)."""
-        self.dist_validation(dataloader, current_iter, tb_logger, save_img)
-
     def nondist_validation(self, dataloader, current_iter, tb_logger,
                            save_img):
+        """One process: it delegates to ``dist_validation``, as the JAX
+        package's does (``edvr_tpu/models/video_base_model.py:216-220``)."""
         self.dist_validation(dataloader, current_iter, tb_logger, save_img)
 
     def dist_validation(self, dataloader, current_iter, tb_logger,

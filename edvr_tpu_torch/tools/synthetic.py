@@ -1,5 +1,6 @@
-"""Seeded synthetic video data for the port's tools and ``chip_smoke.py``:
-smooth moving clips, 8-bit PNG frames, and a REDS-layout tree of them."""
+"""Seeded synthetic data for the port's tools and ``chip_smoke.py``: smooth
+moving clips, 8-bit PNG frames, a REDS-layout tree of them, and paired
+LQ/GT images at any scale."""
 
 from __future__ import annotations
 
@@ -50,4 +51,27 @@ def write_reds_tree(root, seed=0, val_frames=VAL_FRAMES, val_lq=VAL_LQ):
                           frame)
     with open(osp.join(root, 'meta_info.txt'), 'w') as f:
         f.write(f'001 100 ({TRAIN_GT},{TRAIN_GT},3)\n')
+    return root
+
+
+def seeded_image_pair(h, w, scale, gen):
+    """A smooth seeded GT image (3, scale h, scale w) and its box-downsampled
+    LQ image (3, h, w), both in [0, 1]."""
+    field = torch.rand(1, 3, h * scale // 32 + 2, w * scale // 32 + 2,
+                       generator=gen)
+    gt = F.interpolate(field, scale_factor=32, mode='bicubic',
+                       align_corners=False).clamp(0, 1)
+    gt = gt[:, :, :h * scale, :w * scale]
+    return F.avg_pool2d(gt, scale)[0].contiguous(), gt[0].contiguous()
+
+
+def write_image_pairs(root, n, lq_hw, scale, seed=0):
+    """``n`` seeded pairs as ``root/{gt,lq}/<i>.png`` (the same names, as
+    a PairedImageDataset's ``filename_tmpl: '{}'`` pairs them; DIV2K's
+    validation names from 0801). Returns ``root``."""
+    gen = torch.Generator().manual_seed(seed)
+    for i in range(n):
+        lq, gt = seeded_image_pair(*lq_hw, scale, gen)
+        for sub, img in (('lq', lq), ('gt', gt)):
+            write_png(osp.join(root, sub, f'{801 + i:04d}.png'), img)
     return root

@@ -1183,3 +1183,86 @@ def test_bwd_weight_gradient_is_deterministic(cuda, dtype):
     for name, a, b in zip(('d_offset', 'd_mask', 'd_weight'), first[1:],
                           second[1:]):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize('name', ['msrresnet_x2', 'msrresnet_x3',
+                                  'msrresnet_x4', 'edsr_x2', 'edsr_x3',
+                                  'edsr_x4', 'rcan', 'rrdbnet',
+                                  'vggstyle_d128'])
+def test_image_sr_golden_on_card_matches_cpu(cuda, name):
+    """Each image-SR network (and the discriminator, eval mode) from its
+    golden on the card against the golden output and the CPU."""
+    data = np.load(osp.join(osp.dirname(GOLDEN), f'arch_{name}.npz'))
+    net = define_network(json.loads(bytes(data['__config__']).decode()))
+    net.load_state_dict({k: torch.from_numpy(data[k]) for k in data.files
+                         if not k.startswith('__')}, strict=True)
+    x = torch.from_numpy(data['__input__'])
+    with torch.no_grad():
+        on_cpu = net.eval()(x)
+        on_card = net.to(cuda)(x.to(cuda)).cpu()
+    np.testing.assert_allclose(on_card.numpy(), data['__output__'],
+                               atol=3e-4)
+    np.testing.assert_allclose(on_card.numpy(), on_cpu.numpy(), rtol=0,
+                               atol=1e-5 * on_cpu.abs().max().item())
+
+
+@pytest.mark.parametrize('model_type', ['SRGANModel', 'ESRGANModel'])
+def test_gan_step_on_card_matches_cpu(cuda, model_type, tmp_path):
+    """Two small GAN steps (a tiny MSRResNet, the discriminator, a VGG19
+    prefix perceptual loss) on the card and on the CPU from one seed: the
+    logged losses within 1e-3, D's running statistics within 1e-4, and
+    each network's gradient as a whole at a cosine of at least 0.999 (a
+    seeded discriminator barely tells real from fake, so single tensors
+    of its gradient are small differences of large terms: chip_smoke.py,
+    GAN_GRAD_NOTE)."""
+    from edvr_tpu_torch.models import create_model
+    from edvr_tpu_torch.utils.options import parse_dict
+
+    def build(device):
+        opt = dict(
+            name='gan_card', model_type=model_type, scale=4, num_gpu=1,
+            manual_seed=0,
+            network_g=dict(type='MSRResNet', num_feat=16, num_block=2),
+            network_d=dict(type='VGGStyleDiscriminator128', num_feat=8),
+            path=dict(pretrain_network_g=None),
+            train=dict(
+                optim_g=dict(type='Adam', lr=1e-4, betas=[0.9, 0.99]),
+                optim_d=dict(type='Adam', lr=1e-4, betas=[0.9, 0.99]),
+                scheduler=dict(type='MultiStepLR', milestones=[10],
+                               gamma=0.5),
+                total_iter=2, warmup_iter=-1,
+                pixel_opt=dict(type='L1Loss', loss_weight=1.0),
+                perceptual_opt=dict(
+                    type='PerceptualLoss', layer_weights={'conv2_2': 1.0},
+                    style_weight=0.5,
+                    vgg_pretrain_path=str(tmp_path / 'none.pth')),
+                gan_opt=dict(type='GANLoss', gan_type='vanilla',
+                             loss_weight=0.1),
+                net_d_iters=1, net_d_init_iters=0))
+        opt = parse_dict(opt, is_train=True, root=str(tmp_path))
+        opt['device'] = device
+        return create_model(opt)
+
+    models = {d: build(d) for d in ('cuda', 'cpu')}
+    gen = torch.Generator().manual_seed(1)
+    batch = dict(lq=torch.rand(2, 3, 32, 32, generator=gen),
+                 gt=torch.rand(2, 3, 128, 128, generator=gen))
+    for m in models.values():
+        m.feed_data(batch)
+        m.optimize_parameters(1)
+    logs = {d: m.get_current_log() for d, m in models.items()}
+    for k, v in logs['cpu'].items():
+        assert abs(logs['cuda'][k] - v) <= 1e-3 * max(abs(v), 1e-3), k
+    for net in ('net_g', 'net_d'):
+        cpu = dict(getattr(models['cpu'], net).named_parameters())
+        got = torch.cat([p.grad.cpu().double().ravel() for _, p in
+                         getattr(models['cuda'], net).named_parameters()])
+        want = torch.cat([cpu[n].grad.double().ravel() for n, _ in
+                          getattr(models['cuda'], net).named_parameters()])
+        cos = (got @ want / (got.norm() * want.norm())).item()
+        assert cos >= 0.999, (net, cos)
+    cpu_bufs = dict(models['cpu'].net_d.named_buffers())
+    for n, b in models['cuda'].net_d.named_buffers():
+        if 'running' in n:
+            torch.testing.assert_close(b.cpu(), cpu_bufs[n], rtol=1e-4,
+                                       atol=1e-5)

@@ -155,8 +155,11 @@ def test_engine_refusals(tmp_path):
         create_model(opt_with(mixed_precision='fp16'))
     with pytest.raises(NotImplementedError, match='optimizer'):
         create_model(opt_with(optim_g=dict(type='SGD', lr=1e-3)))
-    with pytest.raises(NotImplementedError, match='perceptual'):
-        create_model(opt_with(perceptual_opt=dict(type='PerceptualLoss')))
+    # the perceptual loss is ported: alone it is a valid loss (no refusal)
+    model = create_model(opt_with(pixel_opt=None, perceptual_opt=dict(
+        type='PerceptualLoss', layer_weights={'conv1_1': 1.0},
+        vgg_pretrain_path=str(tmp_path / 'none.pth'))))
+    assert model.cri_pix is None and model.cri_perceptual is not None
     with pytest.raises(ValueError, match='losses are None'):
         create_model(opt_with(pixel_opt=None))
     opt = opt_with()

@@ -16,7 +16,8 @@ of the tap_shared variant
 (``options/train/EDVR/train_EDVR_M_x4_SR_REDS_tapshared.yml``), training
 in bf16 (``mixed_precision: bf16`` kept) and the DCN forward's ablation
 variants through their timing tool, then the GAN training and image-SR
-configurations (phases 26-29); and checks every hand-written kernel
+configurations (phases 26-29) and StyleGAN2's training YAML, sampling
+and FID tools (phases 30-32); and checks every hand-written kernel
 of those paths against its plain PyTorch version. Phases, each printing
 one flushed JSON line with its ``seconds``:
 
@@ -191,6 +192,36 @@ PyTorch's default cuDNN choice, the training CLI's for these networks:
     CLI's functions and for the network alone, peak memory, and one
     64x64 LQ crop against the plain CPU path (IMAGE_SR_TOL of max|out|);
     then the woGT YAML (SingleImageDataset) on the same LQ images.
+
+The StyleGAN2 slice (``stylegan2_phases``; set-up, the iteration cycle and
+the gradient pair from ``edvr_tpu_torch/tools/stylegan2.py``), in this
+process under PyTorch's default cuDNN choice, the training CLI's for
+StyleGAN2. Its path reaches no kernel of the port (the TPU package's
+``upfirdn2d`` and ``fused_leaky_relu`` are XLA, not Pallas), so the
+kernels line is unchanged and the launch counts stay 0:
+
+30. stylegan2_train:
+    ``options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ.yml`` at full
+    width, batch 24 (3 x 8 GPUs in one process), through
+    ``create_model`` / ``feed_data`` / ``optimize_parameters`` on batches
+    read by ``FFHQDataset`` from seeded 256 px PNGs (io_backend lmdb ->
+    disk, printed): a 16-iteration cycle to warm up, then the next timed
+    (plain iterations, path length at every 4th, R1 with it at the 16th;
+    ms by kind, amortised ms, peak memory), finite losses with the JAX
+    engine's log keys, the EMA apart from G, the fixed-sample grid PNG;
+    then batch-2 D, R1, G and path-length gradients with explicit noise on
+    the card against float64 on the CPU, each network's gradient as a
+    whole (gan_pair_check's rule);
+31. stylegan2_sample: ``python -m edvr_tpu_torch.tools.inference_stylegan2``
+    at its defaults (1024 px, Cmul2, truncation 0.7 toward the mean of
+    4096 codes, 16 samples) from a seeded ``.pth``: the PNGs, ms per
+    sample, peak memory, and sample 0 against the plain CPU path
+    (SG2_SAMPLE_TOL of max|out|);
+32. stylegan2_fid: ``python -m edvr_tpu_torch.tools.calculate_stylegan2_fid``
+    over SG2_FID_SAMPLES samples at 256 px with seeded inception weights
+    and seeded statistics: a finite FID, ms per sample (G and the
+    inception), and one batch's pool3 features against the CPU's
+    (SG2_FEAT_TOL of max|feature|).
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -445,6 +476,17 @@ SR_TRAIN_STEPS = 2
 # (RCAN) with cuDNN's and the CPU's algorithms
 IMAGE_SR_CROP = 64
 IMAGE_SR_TOL = 3e-4
+# StyleGAN2 (phases 30-32): the card-vs-float64 gradient pair's batch; the
+# sampling tool's default 16 samples at 1024 px and one against the CPU
+# path (fp32 through 17 modulated convolutions and the FIR resampling,
+# relative to max|out|); the FID tool's samples and batch, and one
+# batch's pool3 features against the CPU's (fp32 through ~95 layers)
+SG2_GRAD_BATCH = 2
+SG2_SAMPLES = 16
+SG2_SAMPLE_TOL = 3e-4
+SG2_FID_SAMPLES = 256
+SG2_FID_BATCH = 64
+SG2_FEAT_TOL = 3e-4
 L_CUTS = ['pretrain: the published EDVR-L checkpoint (not in the repo) -> '
           'seeded weights (torch seed 0, BasicSR init) with each DCN pack\'s '
           f'offset rows drawn and scaled to offsets of up to {OFFSET_PX} px, '
@@ -2445,6 +2487,7 @@ def main():
             edvr_l = json.load(f)
 
     gan_fwd, gan_bwd, gan_launches = gan_sr_phases(state, smi)
+    stylegan2_phases(smi)
 
     l1 = results['L1']
     kernel = {'name': 'dcn_fwd', 'route': 'cuda',
@@ -2896,6 +2939,215 @@ def gan_sr_phases(state, smi):
         if set(image_sr) != set(gan_sr.TEST_YML):
             raise AssertionError(f'image_sr_test ran {sorted(image_sr)}')
     return gan_fwd, gan_bwd, gan_launches
+
+
+def seeded_stylegan2_pth(path, out_size):
+    """A StyleGAN2Generator (Cmul2, 512 style features: the tools' own)
+    of ``out_size`` from torch seed SEED (BasicSR's initialisation), its
+    noise strengths and stored noises drawn so that the samples read
+    them, saved as a ``.pth`` under ``params_ema``."""
+    from edvr_tpu_torch.archs.stylegan2_arch import StyleGAN2Generator
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        net = StyleGAN2Generator(out_size=out_size, channel_multiplier=2)
+        with torch.no_grad():
+            for name, t in net.state_dict().items():
+                if name.startswith('noises.'):
+                    t.normal_()
+                elif t.numel() == 1:  # a StyleConv's noise strength
+                    t.normal_(0, 0.1)
+    torch.save({'params_ema': net.state_dict()}, path)
+    return path
+
+
+def stylegan2_phases(smi):
+    """stylegan2_train, stylegan2_sample and stylegan2_fid, in this process
+    under PyTorch's default cuDNN choice (the training CLI's for
+    StyleGAN2). Returns their readings."""
+    import cv2
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.metrics.fid import load_patched_inception_v3
+    from edvr_tpu_torch.tools import calculate_stylegan2_fid as fid_tool
+    from edvr_tpu_torch.tools import inference_stylegan2 as sample_tool
+    from edvr_tpu_torch.tools import stylegan2 as sg
+    from edvr_tpu_torch.tools.synthetic import write_ffhq_tree
+    from edvr_tpu_torch.train import train_cudnn_env
+    out = {}
+    base_keys = {'l_d', 'real_score', 'fake_score', 'l_g'}
+    kind_keys = {'plain': set(), 'r1': {'l_d_r1'},
+                 'path': {'l_g_path', 'path_length'},
+                 'both': {'l_d_r1', 'l_g_path', 'path_length'}}
+
+    with Phase('stylegan2_train') as ph, tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the engine's experiment paths
+        root = write_ffhq_tree(osp.join(tmp, 'ffhq'), sg.IMAGES)
+        opt, env, dataset, model = sg.build(root, 'cuda', 'default')
+        cli_env = train_cudnn_env(opt['network_g'])
+        if env != cli_env:
+            raise AssertionError(f'StyleGAN2: cuDNN choice {env}, the train '
+                                 f'CLI takes {cli_env}')
+        batches = [sg.batch_of(dataset, opt, i * 24) for i in range(2)]
+        if tuple(batches[0]['gt'].shape) != (24, 3, 256, 256):
+            raise AssertionError(f"StyleGAN2 batch {batches[0]['gt'].shape}")
+        native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+        warm = sg.run_cycle(model, batches, 1)
+        timed = sg.run_cycle(model, batches, 1 + sg.CYCLE)
+        launches = {k: v for k, v in native.LAUNCHES.items() if v}
+        if launches:  # StyleGAN2 reaches no kernel of the port
+            raise AssertionError(f'StyleGAN2 launched {launches}')
+        for it, log in enumerate(warm.pop('logs') + timed['logs'], 1):
+            want = base_keys | kind_keys[sg.kind_of(model, it)]
+            if set(log) != want or not all(np.isfinite(v)
+                                           for v in log.values()):
+                raise AssertionError(f'StyleGAN2 iteration {it}: log {log}, '
+                                     f'expected finite {sorted(want)}')
+        last_log = timed.pop('logs')[-1]
+        ema = dict(model.net_g_ema.named_parameters())
+        ema_gap = max((p - ema[n]).abs().max().item()
+                      for n, p in model.net_g.named_parameters())
+        if not ema_gap > 0:
+            raise AssertionError('StyleGAN2: the EMA equals G')
+        t0 = time.perf_counter()
+        model.nondist_validation(None, 1 + 2 * sg.CYCLE, None, True)
+        val_ms = (time.perf_counter() - t0) * 1e3
+        grid_path = osp.join(opt['path']['visualization'], 'train',
+                             f'train_{1 + 2 * sg.CYCLE}.png')
+        grid = cv2.imread(grid_path)
+        side = 4 * (256 + 2) + 2  # 16 samples, 4 a row
+        if grid is None or grid.shape != (side, side, 3):
+            raise AssertionError(f'StyleGAN2 validation grid {grid_path}: '
+                                 f'{None if grid is None else grid.shape}')
+        # batch-2 gradients, the card against float64 on the CPU (explicit
+        # noise), each network's gradient as a whole (gan_pair_check's rule)
+        t0 = time.perf_counter()
+        pair = sg.grad_pair(model, batches[0]['gt'][:SG2_GRAD_BATCH],
+                            seed=SEED)
+        pair_s = time.perf_counter() - t0
+        gaps, bad = {}, []
+        for key in ('d', 'r1', 'g', 'path'):
+            want = pair['fp64'][key]
+            card_l2, _ = grad_gaps(pair['card'][key], want)
+            cpu_l2, _ = grad_gaps(pair['cpu'][key], want)
+            cos = _total_cosine(pair['card'][key], want)
+            gaps[key] = dict(card_vs_fp64_rel_l2=card_l2,
+                             cpu_fp32_vs_fp64_rel_l2=cpu_l2,
+                             card_vs_fp64_cosine=cos)
+            resolved = cpu_l2 <= STEP_GRAD_TOL / 10
+            if not (card_l2 <= STEP_GRAD_TOL or (
+                    not resolved and cos >= GAN_GRAD_COS_MIN)):
+                bad.append((key, gaps[key]))
+        if bad:
+            raise AssertionError(f'StyleGAN2 gradients card vs float64: {bad}')
+        os.chdir(cwd)
+        out['train'] = dict(
+            yml=osp.relpath(sg.YML, ROOT), batch=list(batches[0]['gt'].shape),
+            warm_ms_first_iter=warm['ms_all']['plain'][0],
+            warm=warm, timed=timed, last_log=last_log, ema_max_gap=ema_gap,
+            val_ms=val_ms, val_grid=list(grid.shape), grads=gaps,
+            grad_pair_s=pair_s)
+        ph.info.update(out['train'], grad_tol=STEP_GRAD_TOL,
+                       grad_cos_min=GAN_GRAD_COS_MIN, cuts=sg.CUTS,
+                       cudnn="PyTorch's default (the train CLI's choice "
+                             'for StyleGAN2)', card=smi)
+        del model, dataset, batches, pair
+        torch.cuda.empty_cache()
+
+    with Phase('stylegan2_sample') as ph, \
+            tempfile.TemporaryDirectory() as tmp:
+        pth = seeded_stylegan2_pth(osp.join(tmp, 'net_g.pth'), 1024)
+        samples = osp.join(tmp, 'samples')
+        t0 = time.perf_counter()
+        paths = sample_tool.main(['--ckpt', pth, '--output', samples])
+        tool_s = time.perf_counter() - t0
+        shapes = {cv2.imread(p).shape for p in paths}
+        if len(paths) != SG2_SAMPLES or shapes != {(1024, 1024, 3)}:
+            raise AssertionError(f'sampling tool: {len(paths)} PNGs of '
+                                 f'{shapes}')
+        net = sample_tool.build_generator(pth)
+        torch.cuda.reset_peak_memory_stats()
+        ms, first = [], None
+        draws = sample_tool.samples(net, SG2_SAMPLES)
+        for _ in range(SG2_SAMPLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = next(draws)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            first = img.cpu() if first is None else first
+        peak = torch.cuda.max_memory_allocated()
+        del net
+        cpu_img = next(sample_tool.samples(
+            sample_tool.build_generator(pth, device='cpu'), 1))
+        gap = rel_err(first, cpu_img)
+        if not (torch.isfinite(first).all() and gap <= SG2_SAMPLE_TOL):
+            raise AssertionError(f'sample 0, card vs CPU: {gap} of max|out| '
+                                 f'> {SG2_SAMPLE_TOL}')
+        out['sample'] = dict(
+            out_size=1024, channel_multiplier=2, truncation=0.7,
+            truncation_mean=4096, samples=SG2_SAMPLES,
+            tool_ms_per_sample=tool_s / SG2_SAMPLES * 1e3,
+            ms_first_sample=ms[0], ms_per_sample=sorted(ms[1:])[
+                len(ms[1:]) // 2], ms_all=ms, peak_mem_bytes=peak,
+            sample0_vs_cpu_rel_to_max=gap)
+        ph.info.update(out['sample'], tol=SG2_SAMPLE_TOL,
+                       cuts=['the published 1024 px checkpoint (not in the '
+                             'repository) -> seeded weights'], card=smi)
+
+    with Phase('stylegan2_fid') as ph, tempfile.TemporaryDirectory() as tmp:
+        pth = seeded_stylegan2_pth(osp.join(tmp, 'net_g.pth'), 256)
+        incep = osp.join(tmp, 'pt_inception.pth')
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 30)
+            torch.save(load_patched_inception_v3(device='cpu').state_dict(),
+                       incep)
+        rng = np.random.RandomState(SEED + 31)
+        a = rng.randn(2048, 64) / 8
+        stats = osp.join(tmp, 'stats.npz')
+        np.savez(stats, mean=rng.randn(2048) * 0.1,
+                 cov=a @ a.T + np.eye(2048) * 1e-2)
+        t0 = time.perf_counter()
+        fid = fid_tool.main([pth, '--fid_stats', stats,
+                             '--inception_weights', incep, '--num_sample',
+                             str(SG2_FID_SAMPLES), '--batch_size',
+                             str(SG2_FID_BATCH)])
+        tool_s = time.perf_counter() - t0
+        if not np.isfinite(fid):
+            raise AssertionError(f'FID {fid}')
+        net = sample_tool.build_generator(pth, out_size=256)
+        inception = load_patched_inception_v3(incep)
+        torch.cuda.reset_peak_memory_stats()
+        feats, secs = fid_tool.sample_features(
+            net, inception, SG2_FID_SAMPLES, SG2_FID_BATCH, seed=SEED + 1)
+        peak = torch.cuda.max_memory_allocated()
+        if not (feats.shape == (SG2_FID_SAMPLES, 2048)
+                and np.isfinite(feats).all()):
+            raise AssertionError(f'FID features {feats.shape}')
+        # one batch: its pool3 features on the card against the CPU's
+        gen = torch.Generator().manual_seed(SEED + 2)
+        with torch.no_grad():
+            img, _ = net([torch.randn(SG2_FID_BATCH, 512,
+                                      generator=gen).cuda()])
+            x = fid_tool.inception_input(img)
+            on_card = inception(x).cpu()
+            on_cpu = load_patched_inception_v3(incep, device='cpu')(x.cpu())
+        gap = rel_err(on_card, on_cpu)
+        if not gap <= SG2_FEAT_TOL:
+            raise AssertionError(f'FID features card vs CPU: {gap} of '
+                                 f'max|feature| > {SG2_FEAT_TOL}')
+        out['fid'] = dict(
+            fid=fid, samples=SG2_FID_SAMPLES, batch=SG2_FID_BATCH,
+            tool_s=tool_s,
+            ms_per_sample=sorted(secs[1:])[len(secs[1:]) // 2]
+            / SG2_FID_BATCH * 1e3,
+            ms_per_batch_all=[s * 1e3 for s in secs], peak_mem_bytes=peak,
+            features_vs_cpu_rel_to_max=gap)
+        ph.info.update(out['fid'], tol=SG2_FEAT_TOL,
+                       cuts=['pt_inception-2015-12-05 and the FFHQ '
+                             'statistics (not in the repository) -> seeded '
+                             'inception weights and seeded statistics',
+                             'num_sample: 50000 -> 256'], card=smi)
+    return out
 
 
 def image_sr_main(out_path):

@@ -2,9 +2,10 @@
 
 ``jax_params_to_state_dict`` is the inverse of
 ``edvr_tpu/convert/torch_import.py``: it maps a flax parameter tree (as
-nested dicts of numpy arrays), and a BatchNorm ``batch_stats`` tree, onto
-BasicSR's flat state-dict keys, with conv kernels HWIO -> OIHW and Dense
-kernels transposed (the layers of the ported architectures).
+nested dicts of numpy arrays), a BatchNorm ``batch_stats`` tree and
+StyleGAN2's ``noises`` collection onto BasicSR's flat state-dict keys, with
+conv kernels HWIO -> OIHW and Dense kernels transposed (the layers of the
+ported architectures).
 ``load_state_dict_file`` reads a BasicSR ``.pth`` or an ``edvr_tpu``
 ``.ckpt`` checkpoint into such a state dict.
 """
@@ -41,6 +42,19 @@ _SEQ_RE = re.compile(r'^(rcab|attention)_(\d+)$')
 _UP_RE = re.compile(r'^up_(\d+)$')
 # VGGFeatureExtractor's ``features_<index>`` (torchvision's layer index)
 _FEATURES_RE = re.compile(r'^features_(\d+)$')
+# StyleGAN2's flax scopes ``<name>_<i>`` that are BasicSR ``nn.Sequential``
+# or ``nn.ModuleList`` entries ``<name>.<i>``, and ConvLayer's ``seq_<i>``
+_SG2_SEQ_RE = re.compile(
+    r'^(style_mlp|style_convs|to_rgbs|conv_body|final_linear)_(\d+)$')
+_SG2_LAYER_RE = re.compile(r'^seq_(\d+)$')
+# StyleGAN2 leaves that name a child module's parameter: ConvLayer's
+# ``seq_<i>_bias`` (its FusedLeakyReLU), StyleConv's ``activate_bias`` and
+# the generator's ``constant_input_weight``
+_SG2_LEAF_RE = re.compile(r'^(seq_(\d+)|activate|constant_input)_'
+                          r'(bias|weight)$')
+# flax NHWC-shaped StyleGAN2 leaves (1, h, w, c) kept as (1, c, h, w):
+# the constant input, ToRGB's bias and the stored noises
+_NHWC_LEAVES = ('constant_input_weight', 'bias', 'noise')
 # flax leaf name -> BasicSR's: conv and Dense kernels and BatchNorm's
 # scale; in batch_stats, BatchNorm's running statistics
 _LEAF = {'kernel': 'weight', 'scale': 'weight'}
@@ -69,27 +83,42 @@ def _torch_key(path, vgg_names=None, leaf=_LEAF) -> str:
         if m and vgg_names is not None:
             tokens += ['vgg_net', vgg_names[int(m.group(1))]]
             continue
+        m = _SG2_LAYER_RE.match(scope)
+        if m:
+            tokens.append(m.group(1))
+            continue
         m = (_MODULE_DICT_RE.match(scope) or _MODULE_LIST_RE.match(scope)
-             or _SEQ_RE.match(scope))
+             or _SEQ_RE.match(scope) or _SG2_SEQ_RE.match(scope))
         tokens.extend(m.groups() if m else [scope])
-    tokens.append(leaf.get(path[-1], path[-1]))
+    m = _SG2_LEAF_RE.match(path[-1])
+    if m:
+        tokens += [m.group(2) or m.group(1), m.group(3)]
+    else:
+        tokens.append(leaf.get(path[-1], path[-1]))
     return '.'.join(tokens)
 
 
-def _torch_layout(value: np.ndarray) -> np.ndarray:
-    # conv kernels (flax 'kernel', DCNv2Pack 'weight') HWIO -> OIHW, Dense
-    # kernels (in, out) -> (out, in)
+def _torch_layout(value: np.ndarray, name: str = '') -> np.ndarray:
+    # StyleGAN2's NHWC-shaped leaves -> NCHW; conv kernels (flax 'kernel',
+    # DCNv2Pack and EqualConv2d 'weight') HWIO -> OIHW, Dense and
+    # EqualLinear kernels (in, out) -> (out, in); ModulatedConv2d's 5-D
+    # weight is BasicSR's layout already
+    if value.ndim == 4 and name.startswith(_NHWC_LEAVES):
+        return value.transpose(0, 3, 1, 2)
     if value.ndim == 4:
         return value.transpose(3, 2, 0, 1)
     return value.T if value.ndim == 2 else value
 
 
 def jax_params_to_state_dict(params: dict, batch_stats: dict | None = None,
-                             vgg_type: str | None = None) -> dict:
+                             vgg_type: str | None = None,
+                             noises: dict | None = None) -> dict:
     """Flax params (nested dicts of arrays) -> {BasicSR key: tensor}.
 
     ``batch_stats`` (flax's BatchNorm collection) adds each BatchNorm's
-    ``running_mean``, ``running_var`` and a zero ``num_batches_tracked``.
+    ``running_mean``, ``running_var`` and a zero ``num_batches_tracked``;
+    ``noises`` (StyleGAN2Generator's collection) its ``noises.noise<i>``
+    buffers.
     ``vgg_type`` names a VGGFeatureExtractor's ``features_<index>`` scopes
     by that VGG's layer names (``vgg_net.conv1_1``, ...)."""
     vgg_names = None
@@ -105,13 +134,15 @@ def jax_params_to_state_dict(params: dict, batch_stats: dict | None = None,
                 continue
             key = _torch_key(path + (k,), vgg_names, leaf)
             out[key] = torch.from_numpy(np.array(
-                _torch_layout(np.asarray(v)), dtype=np.float32, order='C'))
+                _torch_layout(np.asarray(v), k), dtype=np.float32,
+                order='C'))
             if leaf is _STATS_LEAF and k == 'mean':
                 out[key.rsplit('.', 1)[0] + '.num_batches_tracked'] = \
                     torch.tensor(0)
 
     walk(params, (), _LEAF)
     walk(batch_stats or {}, (), _STATS_LEAF)
+    walk(noises or {}, ('noises',), _LEAF)
     return out
 
 

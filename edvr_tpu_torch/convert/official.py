@@ -1,13 +1,16 @@
 """Official third-party checkpoints into BasicSR naming, the port's copy of
-``edvr_tpu/convert/official.py:20-215`` (reference:
-scripts/model_conversion/convert_models.py) for the architectures the port
-has: EDVR, EDSR, RCAN and ESRGAN (RRDBNet). Other families' remaps come
-with their architectures.
+``edvr_tpu/convert/official.py:20-215,282-318`` (reference:
+scripts/model_conversion/convert_models.py, convert_stylegan.py) for the
+architectures the port has: EDVR, EDSR, RCAN, ESRGAN (RRDBNet) and
+rosinality's stylegan2-pytorch generator and discriminator. Other
+families' remaps come with their architectures.
 
     python -m edvr_tpu_torch.convert.official --source EDVR \\
         --pth EDVR_official.pth --out net_g.pth
     python -m edvr_tpu_torch.convert.official --source EDSR --num_block 32 \\
         --pth EDSR_Lx4_official.pth --out net_g.pth
+    python -m edvr_tpu_torch.convert.official --source StyleGAN2G \\
+        --param_key g_ema --pth stylegan2-ffhq-config-f.pth --out net_g.pth
 
 writes a BasicSR ``.pth`` (the state dict under ``params``) that
 ``edvr_tpu_torch.convert.load_state_dict_file`` and the CLIs'
@@ -220,8 +223,46 @@ def remap_esrgan(state):
     return _apply(state, rules, passthrough)
 
 
+def remap_stylegan2_g(state):
+    """rosinality stylegan2-pytorch generator -> BasicSR StyleGAN2Generator
+    (convert_stylegan.py:7-48, inverted)."""
+    rules = [
+        (r'style\.(.*)', r'style_mlp.\1'),
+        (r'input\.input$', r'constant_input.weight'),
+        (r'conv1\.conv\.(.*)', r'style_conv1.modulated_conv.\1'),
+        (r'conv1\.noise\.weight$', r'style_conv1.weight'),
+        (r'conv1\.(.*)', r'style_conv1.\1'),
+        (r'convs\.(\d+)\.conv\.(.*)', r'style_convs.\1.modulated_conv.\2'),
+        (r'convs\.(\d+)\.noise\.weight$', r'style_convs.\1.weight'),
+        (r'convs\.(\d+)\.(.*)', r'style_convs.\1.\2'),
+        (r'to_rgb1\.conv\.(.*)', r'to_rgb1.modulated_conv.\1'),
+        (r'to_rgbs\.(\d+)\.conv\.(.*)', r'to_rgbs.\1.modulated_conv.\2'),
+        (r'noises\.noise_(\d+)$', r'noises.noise\1'),
+        # the reference's identity else-branch spelled out, so that unknown
+        # official keys surface in `unmatched`: to_rgb biases and the fixed
+        # upfirdn smoothing kernels keep their names
+        (r'(to_rgb1\.bias)$', r'\1'),
+        (r'(to_rgbs\.\d+\.bias)$', r'\1'),
+        (r'(to_rgb1\.upsample\.kernel)$', r'\1'),
+        (r'(to_rgbs\.\d+\.upsample\.kernel)$', r'\1'),
+        (r'(convs\.\d+\.conv\.blur\.kernel)$', r'\1'),
+        (r'(conv1\.conv\.blur\.kernel)$', r'\1'),
+    ]
+    return _apply(state, rules)
+
+
+def remap_stylegan2_d(state):
+    """rosinality stylegan2-pytorch discriminator -> BasicSR
+    StyleGAN2Discriminator (convert_stylegan.py:51-68, inverted)."""
+    rules = [(r'convs\.(.*)', r'conv_body.\1')]
+    passthrough = ('final_conv.', 'final_linear.')
+    return _apply(state, rules, passthrough)
+
+
 REMAPPERS = {'EDVR': remap_edvr, 'EDSR': remap_edsr, 'RCAN': remap_rcan,
-             'ESRGAN': remap_esrgan, 'RRDBNet': remap_esrgan}
+             'ESRGAN': remap_esrgan, 'RRDBNet': remap_esrgan,
+             'StyleGAN2G': remap_stylegan2_g,
+             'StyleGAN2D': remap_stylegan2_d}
 # the depth arguments each family's remap takes
 _DEPTH_ARGS = {'EDSR': ('num_block',), 'RCAN': ('num_group', 'num_block')}
 

@@ -9,7 +9,7 @@ from copy import deepcopy
 import torch
 
 from edvr_tpu_torch.data import (  # noqa: F401 (registers)
-    paired_image_dataset, reds_dataset, single_image_dataset,
+    ffhq_dataset, paired_image_dataset, reds_dataset, single_image_dataset,
     video_test_dataset)
 from edvr_tpu_torch.data.data_sampler import EnlargedSampler
 from edvr_tpu_torch.utils import get_root_logger

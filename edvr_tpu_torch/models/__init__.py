@@ -6,8 +6,8 @@ from __future__ import annotations
 from copy import deepcopy
 
 from edvr_tpu_torch.models import (edvr_model, esrgan_model,  # noqa: F401
-                                   sr_model, srgan_model, video_base_model,
-                                   video_gan_model)
+                                   sr_model, srgan_model, stylegan2_model,
+                                   video_base_model, video_gan_model)
 from edvr_tpu_torch.utils import get_root_logger
 from edvr_tpu_torch.utils.registry import MODEL_REGISTRY
 

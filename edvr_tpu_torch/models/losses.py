@@ -2,8 +2,9 @@
 basicsr/models/losses/losses.py and loss_util.py), the counterparts of
 ``edvr_tpu/models/losses.py``: pixel losses (an elementwise core, an
 optional elementwise weight, then a 'none' / 'mean' / 'sum' reduction), the
-weighted TV loss, the GAN losses and the VGG perceptual and style loss.
-The StyleGAN2 regularizers are not ported (ROADMAP A.13)."""
+weighted TV loss, the GAN losses, the VGG perceptual and style loss, and the
+gradient penalties (R1, path length, WGAN-GP), which differentiate through
+a gradient (``torch.autograd.grad(..., create_graph=True)``)."""
 
 from __future__ import annotations
 
@@ -211,6 +212,57 @@ class PerceptualLoss(nn.Module):
                 self.layer_weights[k] for k in x_features)
             style_loss = style_loss * self.style_weight
         return percep_loss, style_loss
+
+
+def r1_penalty(real_pred, real_img):
+    """R1 gradient penalty on real data (reference: losses.py:373-388;
+    ``edvr_tpu/models/losses.py:152-161``): the mean over the batch of the
+    squared norm of d sum(real_pred) / d real_img, differentiable again."""
+    grad_real, = torch.autograd.grad(outputs=real_pred.sum(),
+                                     inputs=real_img, create_graph=True)
+    return grad_real.pow(2).reshape(grad_real.shape[0], -1).sum(1).mean()
+
+
+def g_path_regularize(fake_img, latents, noise, mean_path_length,
+                      decay=0.01):
+    """Path-length regularisation (reference: losses.py:391-403;
+    ``edvr_tpu/models/losses.py:164-180``).
+
+    Args:
+        fake_img: (n, c, h, w), a function of ``latents``.
+        latents: (n, num_latent, num_style_feat).
+        noise: the image-shaped noise, already divided by sqrt(h * w).
+        mean_path_length: the running mean (a scalar tensor or float).
+
+    Returns:
+        (penalty, the batch's mean path length, the running mean moved by
+        ``decay`` toward it, detached).
+    """
+    grad, = torch.autograd.grad(outputs=(fake_img * noise).sum(),
+                                inputs=latents, create_graph=True)
+    path_lengths = torch.sqrt(grad.pow(2).sum(2).mean(1))
+    path_mean = mean_path_length + decay * (
+        path_lengths.mean() - mean_path_length)
+    path_penalty = (path_lengths - path_mean).pow(2).mean()
+    return path_penalty, path_lengths.detach().mean(), path_mean.detach()
+
+
+def gradient_penalty_loss(discriminator, real_data, fake_data, alpha,
+                          weight=None):
+    """WGAN-GP gradient penalty (reference: losses.py:406-442;
+    ``edvr_tpu/models/losses.py:183-196``); ``alpha``: (n, 1, 1, 1)
+    interpolation weights, drawn by the caller."""
+    interpolates = alpha * real_data + (1. - alpha) * fake_data
+    if not interpolates.requires_grad:
+        interpolates.requires_grad_(True)
+    grad, = torch.autograd.grad(outputs=discriminator(interpolates).sum(),
+                                inputs=interpolates, create_graph=True)
+    if weight is not None:
+        grad = grad * weight
+    gp = ((grad.reshape(grad.shape[0], -1).norm(2, dim=1) - 1)**2).mean()
+    if weight is not None:
+        gp = gp / weight.mean()
+    return gp
 
 
 def build_loss(opt: dict):

@@ -75,3 +75,14 @@ def write_image_pairs(root, n, lq_hw, scale, seed=0):
         for sub, img in (('lq', lq), ('gt', gt)):
             write_png(osp.join(root, sub, f'{801 + i:04d}.png'), img)
     return root
+
+
+def write_ffhq_tree(root, n, size=256, seed=0):
+    """``n`` seeded smooth RGB images of ``size`` x ``size`` as FFHQ's
+    ``root/<i:08d>.png`` (the first ``n`` of the 70,000 names
+    ``FFHQDataset`` lists). Returns ``root``."""
+    gen = torch.Generator().manual_seed(seed)
+    for i in range(n):
+        _, img = seeded_image_pair(size // 4, size // 4, 4, gen)
+        write_png(osp.join(root, f'{i:08d}.png'), img)
+    return root

@@ -223,7 +223,31 @@ kernels line is unchanged and the launch counts stay 0:
     inception), and one batch's pool3 features against the CPU's
     (SG2_FEAT_TOL of max|feature|).
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and as
+The video families (DUF, TOFlow, SpyNet), in a child process
+(``chip_smoke.py --video-families OUT``) under the test CLI's cuDNN
+policy, set up by ``edvr_tpu_torch/tools/video_families.py``. Their path
+reaches no TPU kernel either (flow warping is gathers, DUF's dynamic
+filter an einsum), so the launch counts stay 0:
+
+33. duf_test: ``options/test/DUF/test_DUF_official.yml`` as shipped
+    (DUF-52, ``adapt_official_weights``, ``VideoTestDUFDataset`` with
+    ``use_duf_downsampling``) through ``create_dataset`` /
+    ``create_model`` / ``validation`` on a seeded Vid4-layout folder of
+    ``video_families.FRAMES`` frames at calendar's 576x720 GT, from a
+    seeded ``.pth``:
+    PSNR per frame, ms per frame through the CLI's functions, for the
+    network alone (the median of ``video_families.WINDOW_CALLS`` calls
+    on one window, by CUDA events) and for the dataset items alone (the
+    host's DUF downsampling), peak memory, and one window's VF_CROP LQ
+    crop against the plain CPU path (VF_TOL of max|out|);
+34. tof_test: the same for ``options/test/TOF/test_TOF_official.yml``
+    (TOFlow on ``BIx4up_direct``, made by the port's ``imresize`` at x1/4
+    and then x4), the CPU on a VF_CROP x 4 crop of one window;
+35. spynet_flow: one SpyNet flow between two 576x720 frames, the card
+    against the CPU (VF_TOL of max|flow|).
+
+Then a ``wall`` line (the script's seconds so far), a ``{"kernels":
+[...]}`` line, the nvidia-smi name/power line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises,
 and the script exits non-zero without that last line. It needs the repo
 around it and a CUDA card.
@@ -476,6 +500,11 @@ SR_TRAIN_STEPS = 2
 # (RCAN) with cuDNN's and the CPU's algorithms
 IMAGE_SR_CROP = 64
 IMAGE_SR_TOL = 3e-4
+# the video families: the LQ crop side of the CPU check (TOFlow's input is
+# the GT size: 4x that, a multiple of 16), fp32 through up to 58 layers,
+# relative to max|out|
+VF_CROP = 32
+VF_TOL = 3e-4
 # StyleGAN2 (phases 30-32): the card-vs-float64 gradient pair's batch; the
 # sampling tool's default 16 samples at 1024 px and one against the CPU
 # path (fp32 through 17 modulated convolutions and the FIR resampling,
@@ -1493,6 +1522,7 @@ def main():
     from edvr_tpu_torch.ops import dcn, dcn_blend
     from edvr_tpu_torch.utils.options import parse_dict
 
+    t_start = time.perf_counter()
     # fp32 everywhere: the reference is compared at full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2488,6 +2518,7 @@ def main():
 
     gan_fwd, gan_bwd, gan_launches = gan_sr_phases(state, smi)
     stylegan2_phases(smi)
+    video_families_phases()
 
     l1 = results['L1']
     kernel = {'name': 'dcn_fwd', 'route': 'cuda',
@@ -2716,6 +2747,9 @@ def main():
          'bound_by': r['bound_by'], 'library_ms': None,
          'saved_ms': r['saved_ms'], 'shape': 'l1'}
         for (mode, dname), r in ablate_results.items()]
+    print(json.dumps({'phase': 'wall', 'seconds':
+                      time.perf_counter() - t_start, 'card': smi}),
+          flush=True)
     print(json.dumps({'kernels': [kernel, kernel_bwd, kernel_blend,
                                   kernel_gather, kernel_fwd_bf16,
                                   kernel_bwd_bf16, kernel_blend_bf16,
@@ -3150,6 +3184,120 @@ def stylegan2_phases(smi):
     return out
 
 
+def video_families_phases():
+    """duf_test, tof_test and spynet_flow in a child process under the
+    test CLI's cuDNN policy, as ``python -m edvr_tpu_torch.test`` runs the
+    YAMLs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = osp.join(tmp, 'video_families.json')
+        child = subprocess.run([sys.executable, osp.abspath(__file__),
+                                '--video-families', out_path], check=False)
+        if child.returncode:
+            raise AssertionError(f'the video family phases failed (exit '
+                                 f'{child.returncode})')
+        with open(out_path) as f:
+            phases = json.load(f)
+    if set(phases) != {'duf_test', 'tof_test', 'spynet_flow'}:
+        raise AssertionError(f'video families ran {sorted(phases)}')
+
+
+def video_families_main(out_path):
+    """The video family phases: the test CLI's cuDNN policy applied before
+    the first convolution, TF32 off (``parse_options``); their readings
+    written to ``out_path``."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false; this run '
+              'needs a CUDA card', file=sys.stderr)
+        return 1
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.archs import define_network
+    from edvr_tpu_torch.test import use_inference_cudnn_policy
+    from edvr_tpu_torch.tools import video_families as vf
+    use_inference_cudnn_policy()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cudnn_env = {k: os.environ.get(k) for k in (
+        'TORCH_CUDNN_V8_API_DISABLED', 'CUDNN_CONV_WSCAP_DBG')}
+    out = {}
+    # the CPU's LQ crop of one window: DUF reads LQ frames, TOFlow frames
+    # already upsampled to the output size
+    crops = {'DUF': VF_CROP, 'TOF': VF_CROP * 4}
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the YAMLs' datasets/Vid4 and results/ trees
+        vf.write_vid4_tree(osp.join(tmp, 'datasets', 'Vid4'))
+        for name, phase in (('DUF', 'duf_test'), ('TOF', 'tof_test')):
+            with Phase(phase) as ph:
+                native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+                model, loader, r = vf.run_test(name, 'cuda', SEED)
+                launches = {k: v for k, v in native.LAUNCHES.items() if v}
+                if launches:  # the video families reach no port kernel
+                    raise AssertionError(f'{name} launched {launches}')
+                psnr = r['psnr'][vf.FOLDER]
+                if not (len(psnr) == vf.FRAMES == r['saved']
+                        and np.isfinite(psnr).all()
+                        and r['out_hw'] == list(vf.VID4_GT)):
+                    raise AssertionError(f'{name}: {r}')
+                c = crops[name]
+                lq = loader.dataset[vf.FRAMES // 2]['lq'][None, ..., :c, :c]
+                with torch.no_grad():
+                    on_card = model.net_g(lq.cuda()).cpu()
+                    on_cpu = copy.deepcopy(model.net_g).cpu()(lq)
+                gap = rel_err(on_card, on_cpu)
+                if not (torch.isfinite(on_card).all() and gap <= VF_TOL):
+                    raise AssertionError(f'{name}: card vs CPU on a {c}px '
+                                         f'crop: {gap} of max|out| > '
+                                         f'{VF_TOL}')
+                r.update(crop_vs_cpu_rel_to_max=gap, crop_lq=c,
+                         crop_max_abs_err=(on_card - on_cpu).abs().max()
+                         .item(), tol=VF_TOL, cudnn_env=cudnn_env,
+                         cuts=vf.CUTS, card=smi)
+                ph.info.update(r)
+                out[phase] = r
+                del model, loader
+        os.chdir(cwd)
+
+    with Phase('spynet_flow') as ph:
+        gen = torch.Generator().manual_seed(SEED + 30)
+        _, clip = seeded_clip(2, vf.VID4_GT[0] // 4, vf.VID4_GT[1] // 4,
+                              gen)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            net = define_network({'type': 'SpyNet'}).eval()
+        ref, supp = clip[:1], clip[1:]
+        card_net = copy.deepcopy(net).cuda()
+        with torch.no_grad():
+            flow = card_net(ref.cuda(), supp.cuda())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: card_net(ref.cuda(), supp.cuda()), 5)
+            flow = flow.cpu()
+            t0 = time.perf_counter()
+            flow_cpu = net(ref, supp)
+            cpu_s = time.perf_counter() - t0
+        gap = rel_err(flow, flow_cpu)
+        if not (flow.shape == (1, 2, *vf.VID4_GT)
+                and torch.isfinite(flow).all() and gap <= VF_TOL):
+            raise AssertionError(f'SpyNet flow {tuple(flow.shape)}: card vs '
+                                 f'CPU {gap} of max|flow| > {VF_TOL}')
+        r = dict(hw=list(vf.VID4_GT), ms=ms, cpu_ms=cpu_s * 1e3,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 max_abs_flow=flow.abs().max().item(),
+                 card_vs_cpu_rel_to_max=gap,
+                 max_abs_err=(flow - flow_cpu).abs().max().item(),
+                 tol=VF_TOL, weights='seeded (torch seed 0, BasicSR init)',
+                 cudnn_env=cudnn_env, card=smi)
+        ph.info.update(r)
+        out['spynet_flow'] = r
+    with open(out_path, 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
 def image_sr_main(out_path):
     """The image_sr_test phase, as ``python -m edvr_tpu_torch.test`` runs
     it: the test CLI's cuDNN policy applied before the first convolution,
@@ -3388,4 +3536,6 @@ if __name__ == '__main__':
         sys.exit(edvr_l_train_main(sys.argv[2]))
     if sys.argv[1:2] == ['--image-sr']:
         sys.exit(image_sr_main(sys.argv[2]))
+    if sys.argv[1:2] == ['--video-families']:
+        sys.exit(video_families_main(sys.argv[2]))
     sys.exit(main())

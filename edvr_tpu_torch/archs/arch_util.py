@@ -54,6 +54,46 @@ def default_init_weights(modules, scale=1.0):
                 m.bias.zero_()
 
 
+class FlaxBatchNorm:
+    """Mixed into ``nn.BatchNorm2d`` / ``nn.BatchNorm3d`` (same parameters
+    and state-dict keys): in training mode the layer normalises by the
+    batch's mean and biased variance, as torch does, but moves its running
+    statistics as ``flax.linen.BatchNorm`` does, by the biased variance
+    (torch's layers use the unbiased one): ``running = (1 - momentum)
+    running + momentum batch``, so flax's momentum m is ``1 - m`` here.
+    ``update_stats = False`` normalises by the batch without moving them.
+    """
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                dt = self.running_mean.dtype
+                dims = (0, *range(2, x.dim()))
+                var, mean = torch.var_mean(x.detach().to(dt), dim=dims,
+                                           correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        return out
+
+
+class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-statistics update."""
+
+
+class BatchNorm3d(FlaxBatchNorm, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with flax's running-statistics update."""
+
+
 class ResidualBlockNoBN(nn.Module):
     """Conv-ReLU-Conv residual block without BN, the residual scaled by
     ``res_scale`` (reference: arch_util.py:67-95;

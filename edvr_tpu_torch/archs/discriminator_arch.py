@@ -2,57 +2,30 @@
 of ``edvr_tpu/archs/discriminator_arch.py`` (reference:
 basicsr/models/archs/discriminator_arch.py).
 
-Its BatchNorm layers keep flax's running statistics (:class:`BatchNorm2d`):
-in training mode they normalise by the batch's mean and biased variance as
-torch does, but move the running variance by the biased variance, as
-``flax.linen.BatchNorm`` does (torch's ``BatchNorm2d`` uses the unbiased
-one), with flax's momentum 0.9 (torch's 0.1) and eps 1e-5.
+Its BatchNorm layers keep flax's running statistics
+(``arch_util.BatchNorm2d``): in training mode they normalise by the batch's
+mean and biased variance as torch does, but move the running variance by
+the biased variance, as ``flax.linen.BatchNorm`` does (torch's
+``BatchNorm2d`` uses the unbiased one), with flax's momentum 0.9 (torch's
+0.1) and eps 1e-5.
 """
 
 from __future__ import annotations
 
 import contextlib
 
-import torch
 from torch import nn
-from torch.nn import functional as F
 
-from edvr_tpu_torch.archs.arch_util import lrelu
+from edvr_tpu_torch.archs.arch_util import BatchNorm2d, FlaxBatchNorm, lrelu
 from edvr_tpu_torch.utils.registry import ARCH_REGISTRY
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (same parameters and state-dict keys) whose
-    training-mode update is flax's: ``running = 0.9 running + 0.1 batch``
-    with the batch's biased variance. ``update_stats = False`` normalises
-    by the batch without moving the running statistics."""
-
-    def __init__(self, num_features, eps=1e-5, momentum=0.1):
-        super().__init__(num_features, eps=eps, momentum=momentum)
-        self.update_stats = True
-
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                           self.eps)
-        if self.update_stats:
-            with torch.no_grad():
-                dt = self.running_mean.dtype
-                var, mean = torch.var_mean(x.detach().to(dt), dim=(0, 2, 3),
-                                           correction=0)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked.add_(1)
-        return out
 
 
 @contextlib.contextmanager
 def frozen_running_stats(net):
-    """Within the block, ``net``'s :class:`BatchNorm2d` layers normalise
+    """Within the block, ``net``'s :class:`FlaxBatchNorm` layers normalise
     by the batch in training mode but leave their running statistics as
     they are (the JAX GAN step discards such a forward's updates)."""
-    bns = [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+    bns = [m for m in net.modules() if isinstance(m, FlaxBatchNorm)]
     for m in bns:
         m.update_stats = False
     try:

@@ -4,8 +4,8 @@
 ``edvr_tpu/convert/torch_import.py``: it maps a flax parameter tree (as
 nested dicts of numpy arrays), a BatchNorm ``batch_stats`` tree and
 StyleGAN2's ``noises`` collection onto BasicSR's flat state-dict keys, with
-conv kernels HWIO -> OIHW and Dense kernels transposed (the layers of the
-ported architectures).
+conv kernels HWIO -> OIHW (3-D: DHWIO -> OIDHW) and Dense kernels
+transposed (the layers of the ported architectures).
 ``load_state_dict_file`` reads a BasicSR ``.pth`` or an ``edvr_tpu``
 ``.ckpt`` checkpoint into such a state dict.
 """
@@ -34,9 +34,11 @@ _MODULE_LIST_RE = re.compile(r'^(resblock_l1)_(\d+)$')
 CKPT_MAGIC = b'EDVRTPU.CKPT.v1\n'
 
 
-# flax scopes ``<name>_<i>`` that are BasicSR ``nn.Sequential`` entries
-# ``<name>.<i>``: RCAN's ``rcab`` and ``attention``
-_SEQ_RE = re.compile(r'^(rcab|attention)_(\d+)$')
+# flax scopes ``<name>_<i>`` that are BasicSR ``nn.Sequential`` or
+# ``nn.ModuleList`` entries ``<name>.<i>``: RCAN's ``rcab`` and
+# ``attention``, DUF's ``dense_blocks``, SpyNet's and TOFlow's
+# ``basic_module`` (both the flow modules and their layers)
+_SEQ_RE = re.compile(r'^(rcab|attention|dense_blocks|basic_module)_(\d+)$')
 # the Upsample's ``up_<i>`` conv is its ``nn.Sequential`` child 2 i (a pixel
 # shuffle follows each conv)
 _UP_RE = re.compile(r'^up_(\d+)$')
@@ -101,8 +103,11 @@ def _torch_key(path, vgg_names=None, leaf=_LEAF) -> str:
 def _torch_layout(value: np.ndarray, name: str = '') -> np.ndarray:
     # StyleGAN2's NHWC-shaped leaves -> NCHW; conv kernels (flax 'kernel',
     # DCNv2Pack and EqualConv2d 'weight') HWIO -> OIHW, Dense and
-    # EqualLinear kernels (in, out) -> (out, in); ModulatedConv2d's 5-D
-    # weight is BasicSR's layout already
+    # EqualLinear kernels (in, out) -> (out, in); a flax Conv3d 'kernel'
+    # (kt, kh, kw, in, out) -> (out, in, kt, kh, kw), told apart by its
+    # name: ModulatedConv2d's 5-D 'weight' is BasicSR's layout already
+    if value.ndim == 5 and name == 'kernel':
+        return value.transpose(4, 3, 0, 1, 2)
     if value.ndim == 4 and name.startswith(_NHWC_LEAVES):
         return value.transpose(0, 3, 1, 2)
     if value.ndim == 4:

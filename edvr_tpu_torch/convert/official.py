@@ -1,14 +1,16 @@
 """Official third-party checkpoints into BasicSR naming, the port's copy of
-``edvr_tpu/convert/official.py:20-215,282-318`` (reference:
+``edvr_tpu/convert/official.py:20-318`` (reference:
 scripts/model_conversion/convert_models.py, convert_stylegan.py) for the
-architectures the port has: EDVR, EDSR, RCAN, ESRGAN (RRDBNet) and
-rosinality's stylegan2-pytorch generator and discriminator. Other
-families' remaps come with their architectures.
+architectures the port has: EDVR, EDSR, RCAN, ESRGAN (RRDBNet), DUF's
+16-layer model and rosinality's stylegan2-pytorch generator and
+discriminator. Other families' remaps come with their architectures.
 
     python -m edvr_tpu_torch.convert.official --source EDVR \\
         --pth EDVR_official.pth --out net_g.pth
     python -m edvr_tpu_torch.convert.official --source EDSR --num_block 32 \\
         --pth EDSR_Lx4_official.pth --out net_g.pth
+    python -m edvr_tpu_torch.convert.official --source DUF16 \\
+        --pth DUF_x4_16L_official.pth --out net_g.pth
     python -m edvr_tpu_torch.convert.official --source StyleGAN2G \\
         --param_key g_ema --pth stylegan2-ffhq-config-f.pth --out net_g.pth
 
@@ -23,6 +25,7 @@ Each remap returns (renamed_dict, unmatched_keys).
 from __future__ import annotations
 
 import argparse
+import math
 import re
 import sys
 
@@ -223,6 +226,72 @@ def remap_esrgan(state):
     return _apply(state, rules, passthrough)
 
 
+def _deinterleave_duf_filters(v, scale):
+    """DUF's residual-head rows (``conv3d_r2``'s weight and bias) from the
+    official colour-fastest order (r0, g0, b0, r1, ...: TensorFlow's
+    depth_to_space) into the colour-major order ``F.pixel_shuffle`` reads
+    (all r^2 positions of R, then G, then B) (convert_models.py:378-396).
+    Takes a tensor or an array and returns the same kind."""
+    if v.shape[0] != 3 * scale ** 2:
+        raise ValueError(f'conv3d_r2 leading dim {v.shape[0]} != '
+                         f'3*scale^2 ({3 * scale ** 2})')
+    n = v.shape[0]
+    return v[[*range(0, n, 3), *range(1, n, 3), *range(2, n, 3)]]
+
+
+def remap_duf_16l(state, scale=None):
+    """Old official DUF 16-layer naming -> BasicSR DUF with
+    adapt_official_weights=True (convert_models.py:287-376, inverted).
+
+    ``dense_block_1``'s bn3d_{2i+1}, conv3d_{2i+1}, bn3d_{2i+2},
+    conv3d_{2i+2} are children 0, 2, 3, 5 of ``dense_blocks.{i}``;
+    ``dense_block_2``'s bn3d_{2t-1}, conv3d_{2t-1}, bn3d_{2t}, conv3d_{2t}
+    those of ``temporal_reduce{t}``. With ``scale`` (the model's upscale
+    factor) ``conv3d_r2``'s rows are also de-interleaved
+    (:func:`_deinterleave_duf_filters`); a key-only round trip may omit
+    it. The command always de-interleaves, with the factor that
+    :func:`duf_scale` reads from the checkpoint.
+    """
+    def dense(which):
+        def fn(m):
+            block, idx = divmod(int(m.group(2)) - 1, 2)
+            pos = {('bn3d', 0): 0, ('conv3d', 0): 2,
+                   ('bn3d', 1): 3, ('conv3d', 1): 5}[(m.group(1), idx)]
+            if which == 1:
+                return (f'dense_block1.dense_blocks.{block}.{pos}.'
+                        f'{m.group(3)}')
+            return (f'dense_block2.temporal_reduce{block + 1}.{pos}.'
+                    f'{m.group(3)}')
+        return fn
+
+    rules = [
+        (r'conv3d_1\.(.*)', r'conv3d1.\1'),
+        (r'conv3d_2\.(.*)', r'conv3d2.\1'),
+        (r'dense_block_1\.(bn3d|conv3d)_(\d+)\.(.*)', dense(1)),
+        (r'dense_block_2\.(bn3d|conv3d)_(\d+)\.(.*)', dense(2)),
+        (r'bn3d_2\.(.*)', r'bn3d2.\1'),
+    ]
+    passthrough = ('conv3d_r1.', 'conv3d_r2.', 'conv3d_f1.', 'conv3d_f2.')
+    renamed, unmatched = _apply(state, rules, passthrough)
+    if scale is not None:
+        for key in ('conv3d_r2.weight', 'conv3d_r2.bias'):
+            if key in renamed:
+                renamed[key] = _deinterleave_duf_filters(renamed[key], scale)
+    return renamed, unmatched
+
+
+def duf_scale(state):
+    """DUF's upscale factor r, from the 3 r^2 rows of ``conv3d_r2``."""
+    if 'conv3d_r2.weight' not in state:
+        raise ValueError('not a DUF checkpoint: no conv3d_r2.weight')
+    rows = state['conv3d_r2.weight'].shape[0]
+    r = round(math.sqrt(rows / 3))
+    if r < 1 or rows != 3 * r * r:
+        raise ValueError(f'conv3d_r2 has {rows} rows, not 3*r^2 for any '
+                         'upscale factor r')
+    return r
+
+
 def remap_stylegan2_g(state):
     """rosinality stylegan2-pytorch generator -> BasicSR StyleGAN2Generator
     (convert_stylegan.py:7-48, inverted)."""
@@ -261,7 +330,7 @@ def remap_stylegan2_d(state):
 
 REMAPPERS = {'EDVR': remap_edvr, 'EDSR': remap_edsr, 'RCAN': remap_rcan,
              'ESRGAN': remap_esrgan, 'RRDBNet': remap_esrgan,
-             'StyleGAN2G': remap_stylegan2_g,
+             'DUF16': remap_duf_16l, 'StyleGAN2G': remap_stylegan2_g,
              'StyleGAN2D': remap_stylegan2_d}
 # the depth arguments each family's remap takes
 _DEPTH_ARGS = {'EDSR': ('num_block',), 'RCAN': ('num_group', 'num_block')}
@@ -293,6 +362,8 @@ def main(args=None):
     state = load_state_dict_file(args.pth, args.param_key)
     depth = {k: getattr(args, k) for k in _DEPTH_ARGS.get(args.source, ())
              if getattr(args, k) is not None}
+    if args.source == 'DUF16':
+        depth['scale'] = duf_scale(state)
     renamed, unmatched = REMAPPERS[args.source](state, **depth)
     if unmatched:
         print(f'WARNING: {len(unmatched)} official keys without a rename '

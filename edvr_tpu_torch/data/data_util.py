@@ -2,7 +2,8 @@
 (reference: basicsr/data/data_util.py), the counterparts of
 ``edvr_tpu/data/data_util.py``. Image sequences here are (t, c, h, w)
 float32 RGB [0, 1] tensors, as in the reference; ``cv2`` is imported only
-where images are read. The path helpers are the disk modes only: LMDB is
+where images are read. DUF's Gaussian downsampling runs on the host in
+numpy and scipy, as in the JAX package. The path helpers are the disk modes only: LMDB is
 not ported (ROADMAP A.9).
 """
 
@@ -13,12 +14,14 @@ from os import path as osp
 import numpy as np
 import torch
 
+from edvr_tpu_torch.data.transforms import mod_crop
 from edvr_tpu_torch.utils import img2tensor, scandir
 
 
-def read_img_seq(path) -> torch.Tensor:
+def read_img_seq(path, require_mod_crop=False, scale=1) -> torch.Tensor:
     """Read an image folder (or explicit path list) as a (t, c, h, w) RGB
-    float32 tensor (reference: data_util.py:11-32)."""
+    float32 tensor, each frame cut to multiples of ``scale`` with
+    ``require_mod_crop`` (reference: data_util.py:11-32)."""
     import cv2
     frame_paths = path if isinstance(path, list) else sorted(
         scandir(path, full_path=True))
@@ -27,7 +30,8 @@ def read_img_seq(path) -> torch.Tensor:
         img = cv2.imread(p)
         if img is None:
             raise IOError(f'cannot read image {p}')
-        frames.append(img.astype(np.float32) / 255.)
+        img = img.astype(np.float32) / 255.
+        frames.append(mod_crop(img, scale) if require_mod_crop else img)
     return torch.stack(img2tensor(frames, bgr2rgb=True), 0)
 
 
@@ -115,3 +119,43 @@ def paired_paths_from_folder(folders, keys, filename_tmpl):
 def paths_from_folder(folder):
     """Every image path under ``folder`` (reference: data_util.py:250-262)."""
     return [osp.join(folder, p) for p in scandir(folder)]
+
+
+def generate_gaussian_kernel(kernel_size=13, sigma=1.6) -> np.ndarray:
+    """DUF's Gaussian kernel: a centred impulse through scipy's
+    ``gaussian_filter`` (reference: data_util.py:270-285)."""
+    from scipy.ndimage import gaussian_filter
+    kernel = np.zeros((kernel_size, kernel_size))
+    kernel[kernel_size // 2, kernel_size // 2] = 1
+    return gaussian_filter(kernel, sigma)
+
+
+def duf_downsample(x: torch.Tensor, kernel_size=13, scale=4) -> torch.Tensor:
+    """The official DUF code's downsampling (reference:
+    data_util.py:288-331; ``edvr_tpu/data/data_util.py:170-194``): reflect
+    padding by ``kernel_size // 2 + 2 scale``, a ``kernel_size`` Gaussian
+    of sigma 0.4 scale taken every ``scale`` pixels (each tap added in
+    float32, in the JAX package's order), 2 pixels cropped from each side.
+
+    Args:
+        x: (t, c, h, w) or (b, t, c, h, w) frames.
+    """
+    if scale not in (2, 3, 4):
+        raise ValueError(f'DUF downsampling supports scale 2/3/4, '
+                         f'got {scale}')
+    lead = x.shape[:-3]
+    c, h, w = x.shape[-3:]
+    pad = kernel_size // 2 + scale * 2
+    xr = np.pad(x.reshape(-1, c, h, w).numpy(),
+                ((0, 0), (0, 0), (pad, pad), (pad, pad)), 'reflect')
+    kernel = generate_gaussian_kernel(kernel_size, 0.4 * scale)
+    oh = (xr.shape[2] - kernel_size) // scale + 1
+    ow = (xr.shape[3] - kernel_size) // scale + 1
+    out = np.zeros((xr.shape[0], c, oh, ow), np.float32)
+    for i in range(kernel_size):
+        for j in range(kernel_size):
+            out += kernel[i, j] * xr[:, :, i:i + oh * scale:scale,
+                                     j:j + ow * scale:scale]
+    out = out[:, :, 2:-2, 2:-2]
+    return torch.from_numpy(np.ascontiguousarray(out)).reshape(
+        *lead, c, oh - 4, ow - 4)

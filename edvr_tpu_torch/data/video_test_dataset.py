@@ -2,8 +2,11 @@
 counterparts of ``edvr_tpu/data/video_test_dataset.py``: ``VideoTestDataset``,
 per-frame items with folder/idx/border bookkeeping for Vid4, REDS4 and
 REDSofficial (with ``cache_data`` every clip is held in memory as a
-(t, c, h, w) tensor in ``imgs_lq`` / ``imgs_gt``, keyed by folder); and
-``VideoTestVimeo90KDataset``, Vimeo90K's centre-frame testing.
+(t, c, h, w) tensor in ``imgs_lq`` / ``imgs_gt``, keyed by folder);
+``VideoTestVimeo90KDataset``, Vimeo90K's centre-frame testing;
+``VideoTestDUFDataset``, whose LQ windows may be made from the GT frames by
+DUF's Gaussian downsampling; and ``VideoRecurrentTestDataset``, one item a
+whole cached clip.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from os import path as osp
 
 import torch
 
-from edvr_tpu_torch.data.data_util import (generate_frame_indices,
+from edvr_tpu_torch.data.data_util import (duf_downsample,
+                                           generate_frame_indices,
                                            read_img_seq)
 from edvr_tpu_torch.utils import get_root_logger, scandir
 from edvr_tpu_torch.utils.registry import DATASET_REGISTRY
@@ -146,3 +150,60 @@ class VideoTestVimeo90KDataset(torch.utils.data.Dataset):
 
     def __len__(self):
         return len(self.data_info['gt_path'])
+
+
+@DATASET_REGISTRY.register()
+class VideoTestDUFDataset(VideoTestDataset):
+    """VideoTestDataset whose LQ window, with ``use_duf_downsampling``, is
+    the GT window through :func:`duf_downsample` (reference:
+    video_test_dataset.py:231-290; ``edvr_tpu/data/video_test_dataset.py:158-196``).
+    With ``cache_data`` the cached GT frames are downsampled as they are;
+    without, each GT frame read is first cut to multiples of ``scale``
+    (the GT frame returned too)."""
+
+    def __getitem__(self, index):
+        folder = self.data_info['folder'][index]
+        idx, max_idx = map(int, self.data_info['idx'][index].split('/'))
+        select_idx = generate_frame_indices(idx, max_idx,
+                                            self.opt['num_frame'],
+                                            padding=self.opt['padding'])
+        scale = self.opt['scale']
+        duf = self.opt['use_duf_downsampling']
+        if self.cache_data:
+            frames = self.imgs_gt[folder] if duf else self.imgs_lq[folder]
+            imgs_lq = frames.index_select(0, torch.LongTensor(select_idx))
+            img_gt = self.imgs_gt[folder][idx]
+        else:
+            frames = self.imgs_gt[folder] if duf else self.imgs_lq[folder]
+            imgs_lq = read_img_seq([frames[i] for i in select_idx],
+                                   require_mod_crop=duf, scale=scale)
+            img_gt = read_img_seq([self.imgs_gt[folder][idx]],
+                                  require_mod_crop=True, scale=scale)[0]
+        if duf:
+            imgs_lq = duf_downsample(imgs_lq, kernel_size=13, scale=scale)
+        return {'lq': imgs_lq, 'gt': img_gt, 'folder': folder,
+                'idx': self.data_info['idx'][index],
+                'border': self.data_info['border'][index],
+                'lq_path': self.data_info['lq_path'][index]}
+
+
+@DATASET_REGISTRY.register()
+class VideoRecurrentTestDataset(VideoTestDataset):
+    """One item a folder: its whole cached LQ and GT clips (reference:
+    video_test_dataset.py:293-325;
+    ``edvr_tpu/data/video_test_dataset.py:199-216``)."""
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.folders = sorted(set(self.data_info['folder']))
+
+    def __getitem__(self, index):
+        folder = self.folders[index]
+        if not self.cache_data:
+            raise NotImplementedError(
+                'Without cache_data is not implemented.')
+        return {'lq': self.imgs_lq[folder], 'gt': self.imgs_gt[folder],
+                'folder': folder}
+
+    def __len__(self):
+        return len(self.folders)

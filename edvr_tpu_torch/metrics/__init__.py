@@ -3,10 +3,12 @@
 
 from copy import deepcopy
 
+from edvr_tpu_torch.metrics.niqe import calculate_niqe
 from edvr_tpu_torch.metrics.psnr_ssim import calculate_psnr, calculate_ssim
 from edvr_tpu_torch.utils.registry import METRIC_REGISTRY
 
-__all__ = ['calculate_psnr', 'calculate_ssim', 'calculate_metric']
+__all__ = ['calculate_psnr', 'calculate_ssim', 'calculate_niqe',
+           'calculate_metric']
 
 
 def calculate_metric(data: dict, opt: dict):

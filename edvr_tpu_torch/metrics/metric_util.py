@@ -1,16 +1,15 @@
 """Metric input conditioning (reference: basicsr/metrics/metric_util.py),
-copied from ``edvr_tpu/metrics/metric_util.py`` with the MATLAB BGR->Y
-transform it needs (``edvr_tpu/utils/matlab_functions.py::bgr2ycbcr``).
+copied from ``edvr_tpu/metrics/metric_util.py``, with the MATLAB BGR->Y
+transform of ``utils/matlab_functions.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-_ORDERS = {'HWC': (0, 1, 2), 'CHW': (1, 2, 0)}
+from edvr_tpu_torch.utils.matlab_functions import bgr2ycbcr
 
-# MATLAB rgb2ycbcr luma row, in BGR order, on the [0, 1] scale
-_BGR2Y = np.array([24.966, 128.553, 65.481])
+_ORDERS = {'HWC': (0, 1, 2), 'CHW': (1, 2, 0)}
 
 
 def reorder_image(img: np.ndarray, input_order: str = 'HWC') -> np.ndarray:
@@ -30,5 +29,5 @@ def to_y_channel(img: np.ndarray) -> np.ndarray:
     without intermediate rounding."""
     img = img.astype(np.float32) / 255.
     if img.ndim == 3 and img.shape[2] == 3:
-        img = ((img @ _BGR2Y + 16.0) / 255.).astype(np.float32)[..., None]
+        img = bgr2ycbcr(img, y_only=True)[..., None]
     return img * 255.

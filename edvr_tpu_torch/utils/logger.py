@@ -15,8 +15,10 @@ _FORMAT = '%(asctime)s %(levelname)s: %(message)s'
 def get_root_logger(logger_name: str = 'edvr_tpu_torch',
                     log_level: int = logging.INFO,
                     log_file: str | None = None) -> logging.Logger:
-    """The package logger: one stream handler, plus a file handler the
-    first time a ``log_file`` is given."""
+    """The package logger: one stream handler, plus a file handler on the
+    latest ``log_file`` given. A process that runs the CLIs' ``main`` more
+    than once (the tests do) logs each run to its own file: a new
+    ``log_file`` closes the previous file handler."""
     logger = logging.getLogger(logger_name)
     if not logger.handlers:
         handler = logging.StreamHandler()
@@ -24,8 +26,11 @@ def get_root_logger(logger_name: str = 'edvr_tpu_torch',
         logger.addHandler(handler)
         logger.propagate = False
         logger.setLevel(log_level)
-    if log_file is not None and not any(
-            isinstance(h, logging.FileHandler) for h in logger.handlers):
+    if log_file is not None:
+        for h in [h for h in logger.handlers
+                  if isinstance(h, logging.FileHandler)]:
+            logger.removeHandler(h)
+            h.close()
         file_handler = logging.FileHandler(log_file, 'w')
         file_handler.setFormatter(logging.Formatter(_FORMAT))
         file_handler.setLevel(log_level)

@@ -17,6 +17,7 @@ sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from edvr_tpu_torch.tools import ab_kernels  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def meta(*shape, dtype=torch.float32):

@@ -25,6 +25,7 @@ import torch
 
 from edvr_tpu_torch.ops import dcn, dcn_ablate
 from edvr_tpu_torch.tools import ablate_dcn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, CIN, COUT, H, W, DG = 2, 16, 8, 11, 19, 4
 # the same products summed in another order: float32 to 1e-5 of the

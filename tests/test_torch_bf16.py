@@ -46,6 +46,7 @@ from test_torch_cuda import (MP_GRAD_TOL, check_mp_grads, grad_gaps,
                              mp_runs)
 from test_torch_grad import seeded_jax_params, train_opt
 from test_torch_train import _reds_tree
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 SHIPPED_YML = osp.join(REPO, 'options', 'train', 'EDVR',

@@ -3,6 +3,7 @@ the REDS4 protocol (VideoTestDataset, whole-clip EDVR evaluation,
 per-folder x per-frame PSNR, save_img layout), modelled on
 tests/test_test_cli.py."""
 
+import logging
 import os
 import os.path as osp
 import subprocess
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
@@ -197,3 +199,21 @@ def test_video_test_dataset_matches_jax(tmp_path):
                 a['gt'].permute(1, 2, 0).numpy(), b['gt'])
             assert [a[k] for k in ('folder', 'idx', 'border', 'lq_path')] \
                 == [b[k] for k in ('folder', 'idx', 'border', 'lq_path')]
+
+
+def test_root_logger_follows_the_latest_log_file(tmp_path):
+    """Each CLI run in one process logs to its own file: a second
+    ``log_file`` replaces the first's handler (it stayed on the first
+    before, so a later run's log file was never written)."""
+    from edvr_tpu_torch.utils import get_root_logger
+    first, second = str(tmp_path / 'first.log'), str(tmp_path / 'second.log')
+    get_root_logger(log_file=first).info('one')
+    get_root_logger(log_file=second).info('two')
+    get_root_logger().info('three')
+    with open(first) as f:
+        assert 'one' in f.read()
+    with open(second) as f:
+        text = f.read()
+    assert 'two' in text and 'three' in text and 'one' not in text
+    handlers = get_root_logger().handlers
+    assert sum(isinstance(h, logging.FileHandler) for h in handlers) == 1

@@ -25,6 +25,7 @@ from edvr_tpu_torch.data import transforms as tf
 from edvr_tpu_torch.data.file_client import FileClient
 from edvr_tpu_torch.data.reds_dataset import REDSDataset
 from edvr_tpu_torch.utils import imfrombytes
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope='module')

@@ -19,6 +19,7 @@ from edvr_tpu.ops import dcn as jdcn
 from edvr_tpu_torch import native
 from edvr_tpu_torch.models.base_model import resolve_device
 from edvr_tpu_torch.ops import dcn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4  # f32 both sides; sums taken in another order
 

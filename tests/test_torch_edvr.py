@@ -33,6 +33,7 @@ from edvr_tpu_torch.data.data_util import generate_frame_indices
 from edvr_tpu_torch.metrics import calculate_psnr
 from edvr_tpu_torch.ops import dcn
 from edvr_tpu_torch.utils import tensor2img
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 3e-4
 GOLDEN = osp.join(osp.dirname(__file__), 'data', 'golden',
@@ -43,15 +44,18 @@ SMALL = dict(num_feat=16, num_frame=5, deformable_groups=2,
 
 @pytest.fixture(scope='module')
 def small_jax():
-    """JAX EDVR with every parameter redrawn from a numpy seed, so the
-    offsets are non-zero and the DCN samples move; and its clip output."""
+    """JAX EDVR with every parameter drawn from a numpy seed, so the
+    offsets are non-zero and the DCN samples move; and its clip output.
+    The tree comes from ``jax.eval_shape`` of the init (its values would
+    all be redrawn; an eager init takes ~30 s)."""
     model = jarch.EDVR(**SMALL)
-    params = model.init(jax.random.PRNGKey(0),
-                        jnp.zeros((1, 5, 32, 32, 3)))['params']
+    params = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 5, 32, 32, 3)))['params']
     rng = np.random.RandomState(0)
 
     def redraw(leaf):
-        fan_in = int(np.prod(leaf.shape[:-1])) if leaf.ndim > 1 else 16
+        fan_in = (int(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1
+                  else 16)
         return (rng.randn(*leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
 
     params = jax.tree_util.tree_map(redraw, params)

@@ -44,6 +44,7 @@ from edvr_tpu_torch.ops import dcn
 from edvr_tpu_torch.utils import get_root_logger
 
 from test_torch_cli import _make_clips
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 GOLDEN_DIR = osp.join(REPO, 'tests', 'data', 'golden')
@@ -59,17 +60,6 @@ SMALL = dict(num_feat=16, num_frame=5, deformable_groups=2,
 VARIANTS = {'predeblur': dict(with_predeblur=True),
             'hrin': dict(with_predeblur=True, hr_in=True)}
 T = 7
-
-
-@pytest.fixture(scope='module', autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this module's small tensors: the test
-    workers share the machine's cores, and torch's default of one thread
-    per core in every worker oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _golden(name):

@@ -26,6 +26,7 @@ from edvr_tpu_torch.archs import define_network
 from edvr_tpu_torch.convert import jax_params_to_state_dict
 from edvr_tpu_torch.test import INFERENCE_CUDNN_ENV
 from test_torch_train import _write_train_yml
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 3e-4  # as tests/test_torch_edvr.py
 # a tiny EDVR without center_frame_idx, 7 frames

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from edvr_tpu_torch.metrics import fid
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FEAT_TOL = 1e-5  # relative to max|feature|
 

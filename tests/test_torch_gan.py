@@ -32,6 +32,7 @@ from edvr_tpu_torch.archs.discriminator_arch import frozen_running_stats
 from edvr_tpu_torch.convert import jax_params_to_state_dict
 from edvr_tpu_torch.models import create_model, losses
 from edvr_tpu_torch.utils.options import parse_dict
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN_DIR = osp.join(osp.dirname(__file__), 'data', 'golden')
 # one step's parameters, as tests/test_torch_train.py holds the optimizer

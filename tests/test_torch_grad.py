@@ -26,6 +26,7 @@ from edvr_tpu_torch.convert import jax_params_to_state_dict
 from edvr_tpu_torch.models import create_model
 from edvr_tpu_torch.ops import dcn
 from edvr_tpu_torch.utils.options import parse_dict
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # band kernel vs plain autograd, each gradient relative to its largest
 # entry: the bound tests/test_dcn_band.py holds the band path to against

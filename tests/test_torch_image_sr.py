@@ -26,6 +26,7 @@ from edvr_tpu_torch.archs import define_network
 from edvr_tpu_torch.archs.arch_util import ResidualBlockNoBN, Upsample
 from edvr_tpu_torch.convert import jax_params_to_state_dict
 from edvr_tpu_torch.metrics import calculate_ssim
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 GOLDEN_DIR = osp.join(REPO, 'tests', 'data', 'golden')

@@ -32,6 +32,7 @@ from edvr_tpu_torch.models import create_model
 from edvr_tpu_torch.ops import dcn, dcn_blend, gather
 from edvr_tpu_torch.utils.options import parse_dict
 from test_torch_grad import SMALL, seeded_jax_params, train_opt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BLEND_TOL = 1e-5  # fp32 both sides, one product summed in another order
 OUT_TOL = 1e-5    # the packed DCN's output, absolute
@@ -165,8 +166,8 @@ def test_packed_route_matches_jax(packed, geo):
         return jnp.sum(out * jnp.cos(out)), out
 
     before = dcn_pallas.TRACE_COUNTS['blend']
-    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
-                                           has_aux=True)(
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2, 3), has_aux=True))(
         *map(jnp.asarray, arrays))
     assert dcn_pallas.TRACE_COUNTS['blend'] > before, 'blend did not trace'
 
@@ -272,7 +273,8 @@ def test_edvr_packed_forward_and_step_match_jax(packed):
         out = net.apply({'params': p}, jnp.asarray(lq))
         return cri(out, jnp.asarray(gt)), out
 
-    (loss, jout), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    (loss, jout), jgrads = jax.jit(jax.value_and_grad(jloss,
+                                                      has_aux=True))(params)
     assert dcn_pallas.TRACE_COUNTS['blend'] > before, 'blend did not trace'
     state = jax_params_to_state_dict(jax.tree_util.tree_map(np.asarray,
                                                             params))

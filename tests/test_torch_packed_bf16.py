@@ -21,6 +21,7 @@ from edvr_tpu.ops import dcn as jdcn
 from edvr_tpu.ops import dcn_pallas
 from edvr_tpu_torch.ops import dcn, dcn_blend
 from test_torch_packed import _dcn_case, _nchw, _oihw
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the bf16 blend, plain version against the interpreted kernel: the same
 # bf16 products, exact in float32, summed in another order

@@ -27,6 +27,7 @@ from edvr_tpu.archs import edvr_arch as jarch
 from edvr_tpu_torch.archs import define_network
 from edvr_tpu_torch.archs.edvr_arch import conv_cat
 from edvr_tpu_torch.convert import jax_params_to_state_dict
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 3e-4  # as tests/test_torch_edvr.py
 # fp32: the two halves' sums are added once more, in another order than

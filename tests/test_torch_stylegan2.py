@@ -38,6 +38,7 @@ from edvr_tpu_torch.models import create_model, losses
 from edvr_tpu_torch.ops.fused_act import fused_leaky_relu
 from edvr_tpu_torch.ops.upfirdn2d import upfirdn2d
 from edvr_tpu_torch.utils.options import parse_dict
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 GOLDEN_DIR = osp.join(REPO, 'tests', 'data', 'golden')

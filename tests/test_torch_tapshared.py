@@ -27,6 +27,7 @@ from edvr_tpu_torch.convert import jax_params_to_state_dict
 from edvr_tpu_torch.ops import dcn
 from edvr_tpu_torch.utils.options import parse
 from test_torch_train import _reds_tree
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 YML = osp.join(REPO, 'options', 'train', 'EDVR',
@@ -121,7 +122,8 @@ def test_tapshared_edvr_forward_matches_jax(route):
     before = dcn_pallas.TRACE_COUNTS['blend']
     net, params = _tiny_jax(2)
     lq = np.random.RandomState(3).rand(2, 5, 16, 16, 3).astype(np.float32)
-    want = np.asarray(net.apply({'params': params}, jnp.asarray(lq)))
+    want = np.asarray(jax.jit(net.apply)({'params': params},
+                                         jnp.asarray(lq)))
     _check_blend(route, before)
 
     torch_net = define_network(dict(type='EDVR', **TINY)).eval()
@@ -145,9 +147,8 @@ def test_tapshared_edvr_grads_match_jax(route):
     lq = rng.rand(1, 5, 16, 16, 3).astype(np.float32)
     gt = rng.rand(1, 64, 64, 3).astype(np.float32)
     cri = JaxCharbonnier(loss_weight=1.0, reduction='sum')
-    jgrads = jax.grad(lambda p: cri(net.apply({'params': p},
-                                              jnp.asarray(lq)),
-                                    jnp.asarray(gt)))(params)
+    jgrads = jax.jit(jax.grad(lambda p: cri(net.apply(
+        {'params': p}, jnp.asarray(lq)), jnp.asarray(gt))))(params)
     _check_blend(route, before)
     want = _state(jgrads)
 

@@ -13,6 +13,7 @@ tensor cores do. Needs neither a card nor JAX.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BLEND_TOL = 1e-5  # of max|out|: chip_smoke.py's blend gate
 BWD_TOL = 1e-4    # of max|dW|: chip_smoke.py's fp32 backward gate

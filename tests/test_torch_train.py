@@ -27,6 +27,7 @@ from edvr_tpu_torch.convert import jax_params_to_state_dict
 from edvr_tpu_torch.models import create_model, losses, lr_scheduler
 from edvr_tpu_torch.utils.options import parse_dict
 from test_torch_grad import seeded_jax_params, train_opt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 

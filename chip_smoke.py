@@ -16,8 +16,10 @@ of the tap_shared variant
 (``options/train/EDVR/train_EDVR_M_x4_SR_REDS_tapshared.yml``), training
 in bf16 (``mixed_precision: bf16`` kept) and the DCN forward's ablation
 variants through their timing tool, then the GAN training and image-SR
-configurations (phases 26-29) and StyleGAN2's training YAML, sampling
-and FID tools (phases 30-32); and checks every hand-written kernel
+configurations (phases 26-29), StyleGAN2's training YAML, sampling
+and FID tools (phases 30-32), the video families (33-35), and last the
+DCN backward at other tap sizes, DFDNet and the data layer's packed REDS
+through the CUDA prefetcher (36-40); and checks every hand-written kernel
 of those paths against its plain PyTorch version. Phases, each printing
 one flushed JSON line with its ``seconds``:
 
@@ -119,15 +121,19 @@ one flushed JSON line with its ``seconds``:
     bounds;
 19. edvr_l_train, in a child process (``chip_smoke.py --edvr-l-train
     OUT``) under the training CLI's own cuDNN choice
-    (``edvr_tpu_torch.train.use_train_cudnn_policy``: for EDVR-L the test
-    CLI's): the two shipped EDVR-L training YAMLs through the CLI's
+    (``edvr_tpu_torch.train.use_train_cudnn_policy``: for EDVR-L in bf16,
+    as both YAMLs ship, PyTorch's default; checked for each run): the two
+    shipped EDVR-L training YAMLs through the CLI's
     functions on a seeded synthetic REDS tree of PNGs
     (``edvr_tpu_torch.tools.train_edvr_l``), bf16 as shipped, batch 4, 3
     steps each (4 dcn_fwd_bf16 and 4 dcn_bwd_bf16 launches per step, the
     TSA freeze cut to 2 steps), one validation pass (180x320, per window);
     from one seeded state and one batch the bf16 step's gradient against
     the fp32 step's (the mp_train gate) and an fp32 step with ``remat``
-    against the same step without (STEP_GRAD_TOL).
+    against the same step without (STEP_GRAD_TOL). These fp32 steps run
+    under the bf16 runs' choice, PyTorch's default, which the process
+    keeps from its first convolution: not under the cap that the CLI takes
+    for an fp32 EDVR-L run, which no phase runs.
 20-25 run in a child process (``chip_smoke.py --edvr-l OUT``) under the
 test CLI's cuDNN policy (``edvr_tpu_torch.test.INFERENCE_CUDNN_ENV``, read
 at a process's first convolution), as ``python -m edvr_tpu_torch.test``
@@ -245,6 +251,45 @@ filter an einsum), so the launch counts stay 0:
     and then x4), the CPU on a VF_CROP x 4 crop of one window;
 35. spynet_flow: one SpyNet flow between two 576x720 frames, the card
     against the CPU (VF_TOL of max|flow|).
+
+Then, in this process under PyTorch's default cuDNN choice:
+
+36. kernel_bwd_taps_<1x3|5x5|7x7>: the DCN backward kernel at taps other
+    than 3x3 and 1x1 (TAPS; blocks of 9 taps) at the training L1 shape,
+    fp32 and bf16, against autograd through the plain version in float32
+    on the same values, times beside the bounds;
+37. data_train: ``options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml`` at full
+    width from the golden weights through the training CLI's functions
+    (``tools/data_layer.py``: ``parse_options``, the cuDNN choice,
+    ``create_train_val_dataloader``, ``create_model``,
+    ``create_prefetcher``) on a seeded packed REDS (``REDSPackedDataset``,
+    ``.tpak`` by the port's ``write_tpak``, 4 clips x 12 frames of 180x320
+    LQ outside REDS4), every cut printed: DATA_WARMUP + DATA_STEPS bf16
+    steps with ``prefetch_mode: cuda`` and again with ``cpu``; 4 dcn_fwd_bf16 and 4
+    dcn_bwd_bf16 launches a step, finite losses, the batches as the model
+    holds them bitwise equal between the two, ``feed_data`` keeping the
+    CUDA prefetcher's tensors (no second copy), ms per step of each;
+38. loader_throughput: the training loader's items per second on the
+    card's host, ``REDSDataset`` from PNGs and ``REDSPackedDataset`` from
+    ``.tpak`` files of one seeded 100-frame REDS clip at REDS's size, at
+    the shipped crop (GT 256, 5 frames, batch 4), with the shipped
+    ``num_worker_per_gpu`` and with 0: after the batches the workers make
+    ahead are taken, the median of ``tools/data_layer.py``'s WINDOWS
+    windows of WINDOW_S seconds each, and their spread;
+39. dfdnet_golden: DFDNet at full width from the golden
+    (tests/data/golden/dfdnet_full.npz: BasicSR's state dict, its
+    spectral norms folded, loaded strictly; its part dictionary, 512 px
+    face and part locations) on the card against the golden output and
+    the CPU path (DFDNET_TOL of max|out|), the 16 dictionary entries as
+    the CPU's, no kernel of the port launched; ms per face (the median of
+    DFDNET_CALLS by CUDA events), peak memory, and the operations counted
+    on the CPU run (``torch.utils.flop_counter``). A checkout without the
+    golden fails here, after every other phase;
+40. dfdnet_face: ``utils/face_util.py::FaceRestorationHelper`` without
+    dlib on a seeded 2-face FACE_HW photo with its 5-point landmarks (the
+    FFHQ template scaled and moved) and 68-point ones in each crop: the
+    warp and crop, DFDNet through ``tools/inference_dfdnet.restore_face``
+    and the paste at FACE_UPSCALE; shapes, finite, ms per face.
 
 Then a ``wall`` line (the script's seconds so far), a ``{"kernels":
 [...]}`` line, the nvidia-smi name/power line, and as
@@ -516,6 +561,26 @@ SG2_SAMPLE_TOL = 3e-4
 SG2_FID_SAMPLES = 256
 SG2_FID_BATCH = 64
 SG2_FEAT_TOL = 3e-4
+# B.2's taps (kernel_bwd_taps_<tag>): the backward at other tap sizes
+# (kh, kw, padding), at the EDVR-M training L1 shape (n 20, 64 channels,
+# dg 8, 64x64)
+TAPS = {'1x3': (1, 3, 0), '5x5': (5, 5, 2), '7x7': (7, 7, 3)}
+# DFDNet (dfdnet_golden, dfdnet_face): the golden, its tolerance
+# (tests/test_dfdnet.py's, of max|out|; the card against the CPU too),
+# timed calls, the 2-face photo (h, w) and the paste's upscale
+DFDNET_GOLDEN = osp.join(ROOT, 'tests', 'data', 'golden', 'dfdnet_full.npz')
+DFDNET_TOL = 3e-4
+DFDNET_CALLS = 5
+DFDNET_LOCS = [[[96, 128, 176, 208]], [[304, 128, 384, 208]],
+               [[224, 208, 288, 304]], [[176, 336, 336, 416]]]
+FACE_HW = (384, 512)
+FACE_UPSCALE = 2
+# the data layer (data_train, loader_throughput): warm and timed steps
+# with each prefetcher (the warm ones take the loader's pinned buffers,
+# whose allocation synchronises with the card); each loader is timed over
+# tools/data_layer.py's WINDOWS windows of WINDOW_S seconds
+DATA_WARMUP = 3
+DATA_STEPS = 5
 L_CUTS = ['pretrain: the published EDVR-L checkpoint (not in the repo) -> '
           'seeded weights (torch seed 0, BasicSR init) with each DCN pack\'s '
           f'offset rows drawn and scaled to offsets of up to {OFFSET_PX} px, '
@@ -567,14 +632,16 @@ def dcn_bound(x, off, mask, weight, bias):
     rate), bf16 as two exact bf16 products per column entry (its hi and
     lo) at the bf16 rate. The fifth value is the bound with the operations
     on the fp32 pipe (the CUDA cores: a contraction in fp32 FMAs), for
-    comparison."""
-    n, cin, h, w = x.shape
+    comparison. The output's size is the offsets' (oh, ow), which differs
+    from the input's where the padding does not keep it."""
+    n, cin = x.shape[:2]
+    oh, ow = off.shape[2:]
     cout = weight.shape[0]
     K = weight.shape[2] * weight.shape[3]
-    flops = 2 * n * h * w * cout * cin * K
+    flops = 2 * n * oh * ow * cout * cin * K
     nbytes = x.element_size() * (
         x.numel() + off.numel() + mask.numel() + weight.numel()
-        + bias.numel() + n * cout * h * w)
+        + bias.numel() + n * cout * oh * ow)
     t_ops = (3 * flops / PEAK_TF32 if x.dtype == torch.float32
              else 2 * flops / PEAK_OPS[x.dtype])
     t_bytes = nbytes / PEAK_BYTES
@@ -606,14 +673,16 @@ def dcn_bwd_bound(x, off, mask, weight):
     bf16 rate; bytes of x, offset, mask, weight and dout read once, dx,
     d_offset, d_mask and dW written once. The fifth value is the bound
     with the operations on the fp32 pipe (the CUDA cores), that of a
-    contraction in fp32 FMAs, for comparison."""
-    n, cin, h, w = x.shape
+    contraction in fp32 FMAs, for comparison. Both contractions and dout
+    have the output's size, the offsets' (oh, ow)."""
+    n, cin = x.shape[:2]
+    oh, ow = off.shape[2:]
     cout = weight.shape[0]
     K = weight.shape[2] * weight.shape[3]
-    flops = 2 * 2 * n * h * w * cout * cin * K
+    flops = 2 * 2 * n * oh * ow * cout * cin * K
     nbytes = x.element_size() * (
         2 * (x.numel() + off.numel() + mask.numel() + weight.numel())
-        + n * cout * h * w)
+        + n * cout * oh * ow)
     t_ops = (3 * flops / PEAK_TF32 if x.dtype == torch.float32
              else flops / PEAK_OPS[x.dtype])
     t_bytes = nbytes / PEAK_BYTES
@@ -1023,34 +1092,42 @@ def blend_check(cases, c_per, tag, ph):
     return result
 
 
-def bwd_check(args, tol, tag, gen):
+def bwd_check(args, tol, tag, gen, geo=(1, 1, 1), ref_dtype=None):
     """The DCN backward kernel (``dcn_bwd`` or ``dcn_bwd_bf16``, by the
     dtype of ``args``: x, offset, mask, weight, bias) against autograd
-    through the plain version in that dtype, each gradient relative to
-    its largest entry (fails above ``tol``), then ms by CUDA events beside
-    the plain backward and the bound. Returns the readings."""
+    through the plain version in that dtype (in ``ref_dtype`` on the same
+    values, where given), each gradient relative to its largest entry
+    (fails above ``tol``), then ms by CUDA events beside the plain
+    backward (in the inputs' dtype) and the bound. ``geo`` is (stride,
+    padding, dilation); the deformable groups follow from the offset's
+    rows. Returns the readings."""
     from edvr_tpu_torch.ops import dcn
-    geo = (1, 1, 1)  # stride, padding, dilation
+    dg = args[1].shape[1] // (2 * args[3].shape[2] * args[3].shape[3])
     with torch.no_grad():
-        want_out = dcn.modulated_deform_conv_plain(*args, *geo, 1, 8)
+        want_out = dcn.modulated_deform_conv_plain(*args, *geo, 1, dg)
     dout = torch.randn(want_out.shape, generator=gen).cuda().to(
         args[0].dtype)
     del want_out
-    got = dcn.dcn_bwd_cuda(dout, *args[:4], *geo, 8)
+    got = dcn.dcn_bwd_cuda(dout, *args[:4], *geo, dg)
     leaves = [a.clone().requires_grad_() for a in args[:4]]
     plain_out = dcn.modulated_deform_conv_plain(*leaves, args[4], *geo, 1,
-                                                8)
+                                                dg)
     want = torch.autograd.grad(plain_out, leaves, dout, retain_graph=True)
+    if ref_dtype is not None:
+        ref = [a.to(ref_dtype).requires_grad_() for a in args[:4]]
+        want = torch.autograd.grad(dcn.modulated_deform_conv_plain(
+            *ref, args[4].to(ref_dtype), *geo, 1, dg), ref,
+            dout.to(ref_dtype))
     torch.cuda.synchronize()
     errs = {}
     for name, g, w_ in zip(('dx', 'd_offset', 'd_mask', 'd_weight'), got,
                            want):
         errs[name] = rel_err(g, w_)
-        if not (g.dtype == w_.dtype and g.shape == w_.shape
+        if not (g.dtype == args[0].dtype and g.shape == w_.shape
                 and torch.isfinite(g.float()).all() and errs[name] <= tol):
             raise AssertionError(f'dcn_bwd {tag} {name}: rel err '
                                  f'{errs[name]} > {tol}')
-    ms = cuda_ms(lambda: dcn.dcn_bwd_cuda(dout, *args[:4], *geo, 8), 20)
+    ms = cuda_ms(lambda: dcn.dcn_bwd_cuda(dout, *args[:4], *geo, dg), 20)
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         plain_out, leaves, dout, retain_graph=True), 3)
     bound_ms, bound_by, flops, nbytes, fp32_pipe_ms = dcn_bwd_bound(
@@ -2519,6 +2596,9 @@ def main():
     gan_fwd, gan_bwd, gan_launches = gan_sr_phases(state, smi)
     stylegan2_phases(smi)
     video_families_phases()
+    taps = taps_phases(smi)
+    data_launches = data_phases(smi, state)
+    dfdnet_phases(smi)
 
     l1 = results['L1']
     kernel = {'name': 'dcn_fwd', 'route': 'cuda',
@@ -2736,6 +2816,16 @@ def main():
                 'ms', 'plain_ms', 'bound_ms', 'bound_ms_fp32_pipe')})
     for level, r in gan_fwd.items():
         kernel[f'library_ms_gan_{level}'] = r['library_ms']
+    # B.2's taps (kernel_bwd_taps_<tag>) and the packed-REDS training run
+    # through the CUDA prefetcher (data_train)
+    for entry, dname in ((kernel_bwd, 'fp32'), (kernel_bwd_bf16, 'bf16')):
+        entry['max_abs_err'] = max(entry['max_abs_err'], *(
+            r['max_abs_err'] for r in taps[dname].values()))
+        for tag, r in taps[dname].items():
+            entry.update({f'{key}_taps_{tag}': r[key] for key in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_ms_fp32_pipe')})
+    for entry in (kernel_fwd_bf16, kernel_bwd_bf16):
+        entry['launches_data_train'] = data_launches[entry['name']]
     # the ablation variants: their main path is the timing tool's run
     kernels_ablate = [
         {'name': f'dcn_fwd_ablate_{mode}_{dname}', 'route': 'cuda',
@@ -3394,6 +3484,7 @@ def edvr_l_train_main(out_path):
     from edvr_tpu_torch import native
     from edvr_tpu_torch.test import INFERENCE_CUDNN_ENV
     from edvr_tpu_torch.tools import train_edvr_l as tl
+    from edvr_tpu_torch.train import train_cudnn_env
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -3414,12 +3505,16 @@ def edvr_l_train_main(out_path):
         for tag, yml, tsa in (('woTSA', 'train_EDVR_L_x4_SR_REDS_woTSA',
                                None),
                               ('TSA', 'train_EDVR_L_x4_SR_REDS', L_TSA_ITER)):
-            _, env, cuts, loaders, model = build(yml, tsa_iter=tsa)
+            opt, env, cuts, loaders, model = build(yml, tsa_iter=tsa)
             if cudnn_env is None:  # the first build, before any convolution
                 cudnn_env = env
-            if env != INFERENCE_CUDNN_ENV:
-                raise AssertionError(f'EDVR-L training cuDNN choice {env}, '
-                                     f'expected {INFERENCE_CUDNN_ENV}')
+            cli = train_cudnn_env(opt['network_g'],
+                                  opt['train'].get('mixed_precision'))
+            want = {k: cli.get(k) for k in INFERENCE_CUDNN_ENV}
+            if env != want or cudnn_env != want:
+                raise AssertionError(f'EDVR-L {tag} training cuDNN choice '
+                                     f'{env} (first run {cudnn_env}), the '
+                                     f'train CLI takes {want}')
             params = dict(model.net_g.named_parameters())
             snap = lambda: {n: p.detach().clone() for n, p in params.items()}
             before = [snap()]
@@ -3473,9 +3568,12 @@ def edvr_l_train_main(out_path):
 
         # from one seeded initial state and one batch: the bf16 step's
         # first gradient against the fp32 step's (the bf16 gate), and the
-        # fp32 step with remat against the same step without
+        # fp32 step with remat against the same step without; the process
+        # keeps the choice its first convolution took (the bf16 runs'
+        # default), so these fp32 steps do not run under the cap the CLI
+        # takes for fp32 EDVR-L
         _, _, _, loaders, m32 = build('train_EDVR_L_x4_SR_REDS', mp=None,
-                                      tsa_iter=0)
+                                      tsa_iter=0, policy='default')
         init = {k: v.clone() for k, v in m32.net_g.state_dict().items()}
         batch = tl.prefetch(loaders).next()
         native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
@@ -3492,7 +3590,7 @@ def edvr_l_train_main(out_path):
         del m32
         for tag, kw in (('bf16', dict(tsa_iter=0)),
                         ('fp32_remat', dict(mp=None, tsa_iter=0,
-                                            remat=True))):
+                                            remat=True, policy='default'))):
             _, _, _, _, m = build('train_EDVR_L_x4_SR_REDS', **kw)
             if tag == 'fp32_remat' and not m.net_g.remat:
                 raise AssertionError('remat: the network was built without')
@@ -3527,6 +3625,269 @@ def edvr_l_train_main(out_path):
     with open(out_path, 'w') as f:
         json.dump(out, f)
     return 0
+
+
+def taps_inputs(kh, kw, pad, gen, n=TRAIN_N, c=64, dg=8):
+    """Seeded DCN inputs with kh x kw taps at the training L1 size (64x64,
+    stride 1, ``pad``): offsets as dcn_inputs draws them (5% of them 10-25
+    px away), the output's size from the taps and the padding."""
+    h, w = TRAIN_LEVELS['L1']
+    K = kh * kw
+    oh, ow = h + 2 * pad - kh + 1, w + 2 * pad - kw + 1
+    x = torch.randn(n, c, h, w, generator=gen)
+    off = torch.rand(n, dg * 2 * K, oh, ow, generator=gen) * 4 - 2
+    far = torch.rand(off.shape, generator=gen) < 0.05
+    far_off = ((torch.rand(off.shape, generator=gen) * 15 + 10)
+               * torch.sign(torch.rand(off.shape, generator=gen) - 0.5))
+    off = torch.where(far, far_off, off)
+    mask = torch.sigmoid(torch.randn(n, dg * K, oh, ow, generator=gen))
+    weight = (torch.rand(c, c, kh, kw, generator=gen) * 2 - 1) / (c * K)**0.5
+    bias = torch.randn(c, generator=gen) * 0.1
+    return [t.cuda() for t in (x, off, mask, weight, bias)]
+
+
+def taps_phases(smi):
+    """kernel_bwd_taps_<tag>: the backward kernel at taps other than 3x3
+    and 1x1 (1x3, 5x5, 7x7), fp32 and bf16, against autograd through the
+    plain version in float32 on the same values (BWD_TOL, BF16_BWD_TOL),
+    ms beside the bound. In bf16 the reference is float32 because at
+    25-49 taps the bf16 plain version's own dx, summed in bf16 over up to
+    4 K corner terms, is off by up to ~4% of its max (0.036 at 7x7 on an
+    H100), where the kernel sums in float32. Returns {dtype: {tag:
+    readings}}."""
+    gen = torch.Generator().manual_seed(SEED + 40)
+    out = {'fp32': {}, 'bf16': {}}
+    for tag, (kh, kw, pad) in TAPS.items():
+        with Phase(f'kernel_bwd_taps_{tag}') as ph:
+            args32 = taps_inputs(kh, kw, pad, gen)
+            for dname, dt, tol in (('fp32', torch.float32, BWD_TOL),
+                                   ('bf16', torch.bfloat16, BF16_BWD_TOL)):
+                out[dname][tag] = bwd_check([a.to(dt) for a in args32], tol,
+                                            f'taps {tag} {dname}', gen,
+                                            geo=(1, pad, 1),
+                                            ref_dtype=torch.float32)
+            ph.info.update(taps=[kh, kw], padding=pad,
+                           shape=list(args32[0].shape),
+                           **{d: r[tag] for d, r in out.items()}, card=smi)
+            del args32
+    return out
+
+
+def dfdnet_source():
+    """DFDNet's folded weights, part dictionary, 512 px input, part
+    locations and reference output from the golden (DFDNET_GOLDEN, the
+    reference's torch pipeline), and the golden's path. A missing golden
+    raises."""
+    from edvr_tpu_torch.convert import fold_spectral_norm
+    locs = [np.array(loc) for loc in DFDNET_LOCS]
+    if not osp.exists(DFDNET_GOLDEN):
+        raise FileNotFoundError(f'{DFDNET_GOLDEN} is missing: DFDNet is held '
+                                'to the golden, which the repository tracks')
+    data = np.load(DFDNET_GOLDEN)
+    state = fold_spectral_norm({k[3:]: torch.from_numpy(data[k])
+                                for k in data.files if k.startswith('sd.')})
+    dict_feat = {}
+    for k in data.files:
+        if k.startswith('dict.'):
+            _, size, part = k.split('.')
+            dict_feat.setdefault(size, {})[part] = torch.from_numpy(data[k])
+    if not np.array_equal(data['__locs__'], np.array(DFDNET_LOCS)):
+        raise AssertionError(f"golden locations {data['__locs__']}")
+    return (state, dict_feat, torch.from_numpy(data['__input__']), locs,
+            torch.from_numpy(data['__output__']), 'golden ' + osp.relpath(
+                DFDNET_GOLDEN, ROOT))
+
+
+def face_landmarks(gen):
+    """A seeded 2-face photo (FACE_HW, RGB uint8), each face's 5 landmarks
+    (the FFHQ template scaled and moved into the photo) and 68 landmarks
+    in its aligned 512 px crop (groups around where the template puts the
+    eyes, the nose and the mouth: no detector here)."""
+    from edvr_tpu_torch.tools.synthetic import seeded_image_pair
+    from edvr_tpu_torch.utils.face_util import FFHQ_TEMPLATE_1024
+    _, img = seeded_image_pair(FACE_HW[0] // 4, FACE_HW[1] // 4, 4, gen)
+    img = (img.permute(1, 2, 0).numpy() * 255).round().astype(np.uint8)
+    marks5 = [FFHQ_TEMPLATE_1024 * 0.3 + np.array([10., 20.]),
+              FFHQ_TEMPLATE_1024 * 0.25 + np.array([250., 90.])]
+    groups = [(17, (194, 215), (30, 6)), (22, (318, 215), (30, 6)),
+              (27, (257, 270), (4, 20)), (29, (257, 320), (20, 15)),
+              (36, (194, 245), (20, 6)), (42, (318, 245), (20, 6)),
+              (48, (257, 400), (40, 15)), (68, None, None)]
+    marks68 = []
+    for _ in range(2):
+        pts = np.zeros((68, 2))
+        pts[:17] = np.stack([np.linspace(120, 392, 17),
+                             np.full(17, 450.)], 1)
+        for (start, center, spread), (end, _, _) in zip(groups, groups[1:]):
+            noise = torch.rand(end - start, 2, generator=gen).numpy() * 2 - 1
+            pts[start:end] = np.array(center) + noise * np.array(spread)
+        marks68.append(pts)
+    return img, marks5, marks68
+
+
+def dfdnet_phases(smi):
+    """dfdnet_golden and dfdnet_face, in this process under PyTorch's
+    default cuDNN choice. Returns their readings."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.archs.dfdnet_arch import DFDNet
+    from edvr_tpu_torch.tools import inference_dfdnet as tool
+    from edvr_tpu_torch.utils.face_util import FaceRestorationHelper
+    state, dict_feat, x, locs, ref, source = dfdnet_source()
+    order = [(part, size) for size in (256, 128, 64, 32)
+             for part in ('left_eye', 'right_eye', 'nose', 'mouth')]
+    out = {}
+    with Phase('dfdnet_golden') as ph:
+        cpu_net = DFDNet(num_feat=64)
+        cpu_net.load_state_dict(state, strict=True)
+        cpu_net.eval()
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            cpu_out = cpu_net(x, locs, dict_feat)
+        cpu_chosen = [cpu_net.selected[k] for k in order]
+        net = DFDNet(num_feat=64)
+        net.load_state_dict(state, strict=True)
+        net = net.cuda().eval()
+        dict_cuda = tool.dict_to(dict_feat, 'cuda')
+        xc = x.cuda()
+        native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            got = net(xc, locs, dict_cuda).cpu()
+        peak = torch.cuda.max_memory_allocated()
+        chosen = [net.selected[k] for k in order]
+        launches = {k: v for k, v in native.LAUNCHES.items() if v}
+        vs_cpu = rel_err(got, cpu_out)
+        checks = {'shape': tuple(got.shape) == (1, 3, 512, 512),
+                  'finite': bool(torch.isfinite(got).all()),
+                  'card_vs_cpu': vs_cpu <= DFDNET_TOL,
+                  'entries_as_cpu': chosen == cpu_chosen,
+                  'no_port_kernel': not launches}
+        vs_ref, cpu_vs_ref = rel_err(got, ref), rel_err(cpu_out, ref)
+        checks['golden'] = vs_ref <= DFDNET_TOL
+        if not all(checks.values()):
+            raise AssertionError(f'DFDNet: checks {checks}, card vs CPU '
+                                 f'{vs_cpu}, vs golden {vs_ref}, entries '
+                                 f'{chosen} (CPU {cpu_chosen}), launches '
+                                 f'{launches}')
+        times = []
+        with torch.no_grad():
+            for _ in range(DFDNET_CALLS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                net(xc, locs, dict_cuda)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+        ms = sorted(times)[len(times) // 2]
+        flops = counter.get_total_flops()
+        out['golden'] = dict(
+            source=source, shape=list(got.shape), tol_rel_to_max=DFDNET_TOL,
+            rel_err_golden=vs_ref, rel_err_cpu_vs_golden=cpu_vs_ref,
+            rel_err_card_vs_cpu=vs_cpu,
+            chosen={f'{p}_{s}': i for (p, s), i in zip(order, chosen)},
+            ms_per_face_median=ms, ms_per_face_all=times,
+            peak_mem_bytes=peak, gflop=flops / 1e9,
+            tflops_achieved=flops / (ms * 1e-3) / 1e12)
+        ph.info.update(**out['golden'], card=smi)
+
+    with Phase('dfdnet_face') as ph:
+        img, marks5, marks68 = face_landmarks(
+            torch.Generator().manual_seed(SEED + 31))
+        helper = FaceRestorationHelper(FACE_UPSCALE, face_size=512)
+        helper.input_img = img
+        helper.all_landmarks_5 = marks5
+        helper.warp_crop_faces()
+        face_ms, parts = [], []
+        for crop, lm68 in zip(helper.cropped_faces, marks68):
+            part_locations = tool.get_part_location(lm68)
+            parts.append([loc[0].tolist() for loc in part_locations])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = tool.restore_face(net, crop, part_locations, dict_cuda)
+            face_ms.append((time.perf_counter() - t0) * 1e3)
+            helper.add_restored_face(np.ascontiguousarray(res[..., ::-1]))
+        canvas = helper.paste_faces_to_input_image()
+        want = (FACE_HW[0] * FACE_UPSCALE, FACE_HW[1] * FACE_UPSCALE, 3)
+        if not (len(helper.cropped_faces) == 2 and canvas.shape == want
+                and np.isfinite(canvas).all()
+                and all(f.shape == (512, 512, 3) for f in
+                        helper.restored_faces)):
+            raise AssertionError(f'DFDNet faces: {len(helper.cropped_faces)}'
+                                 f' crops, result {canvas.shape} (want '
+                                 f'{want}), finite '
+                                 f'{np.isfinite(canvas).all()}')
+        out['face'] = dict(photo=list(img.shape), faces=2,
+                           upscale=FACE_UPSCALE, result=list(canvas.shape),
+                           part_locations=parts, ms_per_face=face_ms,
+                           result_range=[float(canvas.min()),
+                                         float(canvas.max())])
+        ph.info.update(**out['face'], card=smi)
+    return out
+
+
+def data_phases(smi, golden_state):
+    """data_train and loader_throughput. Returns the launches of
+    data_train's run with CUDAPrefetcher."""
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.tools import data_layer as dl
+    per_step = launch_counts(dcn_fwd_bf16=4, dcn_bwd_bf16=4)
+    per_step = {k: v for k, v in per_step.items() if v}
+    with Phase('data_train') as ph, tempfile.TemporaryDirectory() as tmp:
+        gt_pak, lq_pak = dl.write_packed_reds(osp.join(tmp, 'packed'),
+                                              seed=SEED)
+        golden_pth = osp.join(tmp, 'edvr_m_golden.pth')
+        torch.save({'params': golden_state}, golden_pth)
+        cwd = os.getcwd()
+        os.chdir(tmp)  # the engine's experiment paths
+        runs, fed, launches, cuts = {}, {}, None, {}
+        for mode, cls in (('cuda', 'CUDAPrefetcher'),
+                          ('cpu', 'CPUPrefetcher')):
+            args, cuts[mode] = dl.train_args(gt_pak, lq_pak, golden_pth,
+                                             mode)
+            print(json.dumps({'data_train_cuts': cuts[mode], 'mode': mode}),
+                  flush=True)
+            opt, env, sampler, model, prefetcher = dl.build(args)
+            if prefetcher.__class__.__name__ != cls:
+                raise AssertionError(f'prefetch_mode {mode}: '
+                                     f'{prefetcher.__class__.__name__}')
+            native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+            r, fed[mode] = dl.run_steps(model, sampler, prefetcher,
+                                        DATA_STEPS, DATA_WARMUP)
+            if mode == 'cuda':
+                launches = dict(native.LAUNCHES)
+            if any(c != per_step for c in r['launches']):
+                raise AssertionError(f'data_train {mode}: launches per step '
+                                     f"{r['launches']}, expected {per_step}")
+            if not np.isfinite(r['losses']).all():
+                raise AssertionError(f"data_train {mode}: losses "
+                                     f"{r['losses']}")
+            if mode == 'cuda' and not all(r['feed_kept_tensors']):
+                raise AssertionError('data_train: feed_data copied the '
+                                     "prefetcher's batch again")
+            r['launches_per_step'] = r.pop('launches')[-1]
+            runs[mode] = dict(prefetcher=cls, cudnn_env=env,
+                              workers=opt['datasets']['train'][
+                                  'num_worker_per_gpu'], **r)
+            del model, prefetcher
+        same = [a[0] == b[0] and torch.equal(a[1], b[1])
+                and torch.equal(a[2], b[2])
+                for a, b in zip(fed['cuda'], fed['cpu'])]
+        if not (len(same) == DATA_WARMUP + DATA_STEPS and all(same)):
+            raise AssertionError(f'data_train: batches as the model holds '
+                                 f'them, CUDAPrefetcher vs CPUPrefetcher: '
+                                 f'{same}')
+        os.chdir(cwd)
+        ph.info.update(yml=osp.relpath(dl.EDVR_M_YML, ROOT),
+                       mixed_precision=opt['train']['mixed_precision'],
+                       cuts=cuts, runs=runs, batches_bitwise_equal=True,
+                       card=smi)
+    with Phase('loader_throughput') as ph, tempfile.TemporaryDirectory() as t:
+        ph.info.update(**dl.throughput(dl.write_reds_clip(t, seed=SEED)),
+                       card=smi)
+    return launches
 
 
 if __name__ == '__main__':

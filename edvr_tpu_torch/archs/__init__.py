@@ -4,10 +4,12 @@
 from copy import deepcopy
 
 # importing the modules registers the classes
-from edvr_tpu_torch.archs import (discriminator_arch, duf_arch,  # noqa: F401
+from edvr_tpu_torch.archs import (dfdnet_arch,  # noqa: F401
+                                  discriminator_arch, duf_arch,
                                   edsr_arch, rcan_arch, rrdbnet_arch,
                                   spynet_arch, srresnet_arch, stylegan2_arch,
                                   tof_arch, vgg_arch)
+from edvr_tpu_torch.archs.dfdnet_arch import DFDNet
 from edvr_tpu_torch.archs.discriminator_arch import VGGStyleDiscriminator128
 from edvr_tpu_torch.archs.duf_arch import DUF
 from edvr_tpu_torch.archs.edsr_arch import EDSR
@@ -26,7 +28,7 @@ __all__ = ['define_network', 'ARCH_REGISTRY', 'EDVR', 'PCDAlignment',
            'TSAFusion', 'EDSR', 'RCAN', 'RRDBNet', 'MSRResNet',
            'VGGStyleDiscriminator128', 'VGGFeatureExtractor',
            'StyleGAN2Generator', 'StyleGAN2Discriminator', 'SpyNet',
-           'TOFlow', 'DUF']
+           'TOFlow', 'DUF', 'DFDNet']
 
 
 def define_network(opt: dict):

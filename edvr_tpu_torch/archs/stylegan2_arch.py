@@ -271,6 +271,16 @@ class StyleGAN2Generator(nn.Module):
                                       resample_kernel=resample_kernel))
             in_channels = out_channels
 
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # the JAX engine saves params only: its stored noises are zeros
+        # whatever the seed (edvr_tpu/archs/stylegan2_arch.py's 'noises'
+        # collection), as this network's buffers start; a state dict
+        # without them loads them as zeros, a given one as it is
+        for name, buf in self.noises.named_buffers():
+            state_dict.setdefault(f'{prefix}noises.{name}',
+                                  torch.zeros_like(buf))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
     def __getstate__(self):
         # a copy (deepcopy, pickle) starts its own noise generators afresh
         return dict(super().__getstate__(), _noise_generators={})

@@ -151,6 +151,29 @@ def jax_params_to_state_dict(params: dict, batch_stats: dict | None = None,
     return out
 
 
+def fold_spectral_norm(state: dict) -> dict:
+    """Fold spectral-norm parametrisations into plain weights (the port's
+    copy of ``edvr_tpu/convert/torch_import.py::fold_spectral_norm``).
+
+    A checkpoint of spectral-normalised modules stores ``weight_orig``,
+    ``weight_u`` and ``weight_v``; the weight in use is ``W / sigma`` with
+    ``sigma = u^T (W_mat v)``, ``W_mat`` the weight as (out, -1). Other
+    keys pass through. Used to read DFDNet's checkpoints, which the port
+    runs for inference only."""
+    out = {}
+    for key, val in state.items():
+        if key.endswith('weight_orig'):
+            base = key[:-len('weight_orig')]  # keeps the trailing dot
+            w = torch.as_tensor(val)
+            u = torch.as_tensor(state[f'{base}weight_u'])
+            v = torch.as_tensor(state[f'{base}weight_v'])
+            sigma = u @ (w.reshape(w.shape[0], -1) @ v)
+            out[f'{base}weight'] = w / sigma
+        elif not key.endswith(('weight_u', 'weight_v')):
+            out[key] = val
+    return out
+
+
 def load_state_dict_file(path: str, param_key: str = 'params') -> dict:
     """Read a checkpoint into a state dict.
 

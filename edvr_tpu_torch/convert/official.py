@@ -2,8 +2,9 @@
 ``edvr_tpu/convert/official.py:20-318`` (reference:
 scripts/model_conversion/convert_models.py, convert_stylegan.py) for the
 architectures the port has: EDVR, EDSR, RCAN, ESRGAN (RRDBNet), DUF's
-16-layer model and rosinality's stylegan2-pytorch generator and
-discriminator. Other families' remaps come with their architectures.
+16-layer model, rosinality's stylegan2-pytorch generator and
+discriminator, and DFDNet. Other families' remaps come with their
+architectures.
 
     python -m edvr_tpu_torch.convert.official --source EDVR \\
         --pth EDVR_official.pth --out net_g.pth
@@ -13,6 +14,8 @@ discriminator. Other families' remaps come with their architectures.
         --pth DUF_x4_16L_official.pth --out net_g.pth
     python -m edvr_tpu_torch.convert.official --source StyleGAN2G \\
         --param_key g_ema --pth stylegan2-ffhq-config-f.pth --out net_g.pth
+    python -m edvr_tpu_torch.convert.official --source DFDNet \\
+        --pth DFDNet_official.pth --out DFDNet.pth
 
 writes a BasicSR ``.pth`` (the state dict under ``params``) that
 ``edvr_tpu_torch.convert.load_state_dict_file`` and the CLIs'
@@ -328,10 +331,46 @@ def remap_stylegan2_d(state):
     return _apply(state, rules, passthrough)
 
 
+def remap_dfdnet(state, vgg_names=None):
+    """csxmli2016's official DFDNet naming -> BasicSR DFDNet
+    (convert_dfdnet.py:7-65, inverted; the rules of
+    ``edvr_tpu/convert/official.py::remap_dfdnet``). ``vgg_names`` (default
+    vgg19's, ``archs.vgg_arch.NAMES``) names torchvision's feature
+    indices. The spectral norms stay as they are (``weight_orig``, ``_u``,
+    ``_v``): ``convert.fold_spectral_norm`` folds them when the checkpoint
+    is read."""
+    if vgg_names is None:
+        from edvr_tpu_torch.archs.vgg_arch import NAMES
+        vgg_names = NAMES['vgg19']
+
+    def vgg(m):
+        return (f'vgg_extractor.vgg_net.{vgg_names[int(m.group(1))]}.'
+                f'{m.group(2)}')
+
+    rules = [
+        (r'VggExtract\.RGB_mean$', r'vgg_extractor.mean'),
+        (r'VggExtract\.RGB_std$', r'vgg_extractor.std'),
+        (r'VggExtract\.model\.features\.(\d+)\.(.*)', vgg),
+        (r'le\.(.*)', r'attn_blocks.left_eye.\1'),
+        (r're\.(.*)', r'attn_blocks.right_eye.\1'),
+        (r'no\.(.*)', r'attn_blocks.nose.\1'),
+        (r'mo\.(.*)', r'attn_blocks.mouth.\1'),
+        (r'MSDilate\.conv(\d)\.(.*)',
+         lambda m: f'multi_scale_dilation.conv_blocks.'
+                   f'{int(m.group(1)) - 1}.{m.group(2)}'),
+        (r'MSDilate\.convi\.(.*)', r'multi_scale_dilation.conv_fusion.\1'),
+        (r'up4\.Model\.(.*)', r'upsample4.body.\1'),
+        (r'up(\d)\.ScaleModel1\.(.*)', r'upsample\1.scale_block.\2'),
+        (r'up(\d)\.ShiftModel1\.(.*)', r'upsample\1.shift_block.\2'),
+        (r'up(\d)\.(.*)', r'upsample\1.\2'),
+    ]
+    return _apply(state, rules)
+
+
 REMAPPERS = {'EDVR': remap_edvr, 'EDSR': remap_edsr, 'RCAN': remap_rcan,
              'ESRGAN': remap_esrgan, 'RRDBNet': remap_esrgan,
              'DUF16': remap_duf_16l, 'StyleGAN2G': remap_stylegan2_g,
-             'StyleGAN2D': remap_stylegan2_d}
+             'StyleGAN2D': remap_stylegan2_d, 'DFDNet': remap_dfdnet}
 # the depth arguments each family's remap takes
 _DEPTH_ARGS = {'EDSR': ('num_block',), 'RCAN': ('num_group', 'num_block')}
 

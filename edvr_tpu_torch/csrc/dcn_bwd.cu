@@ -36,8 +36,10 @@
 // tensor cores against half the bytes, 0.031 ms, so the bytes bound it.
 //
 // Design: one block per (run of tiles, deformable group, 64 output
-// channels z); it walks its share of the 64-pixel tiles of that group,
-// persistent, holding the group's weight slice in shared memory and its
+// channels z) -- for taps other than 3x3 and 1x1, per (run of tiles, group
+// and chunk of at most 9 taps, z), so that shared memory does not grow with
+// kh x kw (a tap's gradients read no other tap's weights); it walks its
+// share of the 64-pixel tiles of that group, persistent, holding the group's weight slice in shared memory and its
 // dW^T tile in registers. Per tile:
 //  1. dcol^T (64 pixels x K*C_PER) = dout_tile^T . W_g on the tensor
 //     cores, over every 64-channel chunk of dout, into shared memory
@@ -82,6 +84,16 @@ constexpr int TP = 64;        // pixels per tile
 constexpr int TO = 64;        // output channels per chunk
 constexpr int THREADS = 256;  // 8 warps: 4 m16 bands x 2 n8 interleaves
 constexpr int LDD = TP + 8;   // row of the staged dout tile (elements)
+// taps a block takes when kh x kw is neither 3x3 nor 1x1 (a chunk)
+constexpr int BWD_TAP_CHUNK = 9;
+
+// the tap chunks of a kh x kw backward, a factor of the grid's y: 1 for
+// 3x3 and 1x1 (one block's compile-time taps) and any kh x kw up to 9
+// taps. The launch sizes its grid by it, and the caller its block count
+// (dcn_bwd_tap_chunks).
+constexpr int tap_chunks(int kh, int kw) {
+  return (kh * kw + BWD_TAP_CHUNK - 1) / BWD_TAP_CHUNK;
+}
 
 template <typename T, int C_PER, int K>
 struct Cfg {
@@ -109,14 +121,16 @@ __device__ __forceinline__ int dout_at(int o, int p) {
     return o * LDD + (p ^ (o & 4));
 }
 
-// W_g's channels o_base .. o_base + 63 as W_s[kc][o], zero outside.
+// W_g's rows kc < kcv (the block's taps) and channels o_base .. o_base + 63
+// as W_s[kc][o], zero outside.
 template <typename T, int C_PER, int K>
 __device__ __forceinline__ void stage_w(T* W_s, const T* __restrict__ wg,
-                                        int o_base, int cout, int tid) {
+                                        int kcv, int o_base, int cout,
+                                        int tid) {
   using C = Cfg<T, C_PER, K>;
   for (int i = tid; i < C::KCN * TO; i += THREADS) {
     const int kc = i / TO, col = i % TO, o = o_base + col;
-    W_s[kc * C::LDW + col] = (kc < C::KC && o < cout)
+    W_s[kc * C::LDW + col] = (kc < kcv && o < cout)
                                  ? wg[(size_t)kc * cout + o]
                                  : from_f32<T>(0.f);
   }
@@ -283,20 +297,34 @@ __device__ __forceinline__ void scatter_corner(float* dst, const float* g,
   }
 }
 
-template <typename T, int C_PER, int K>
+// K is the block's tap capacity. CHUNKED false: the kernel's K taps in
+// one block per group; true: ktot taps in chunks of K (the last ragged),
+// blockIdx.y = group * chunks + chunk. The taps' gradients are independent
+// (dcol of tap k reads W's rows of tap k only), so a chunk is a whole
+// backward of its taps, and shared memory stays that of K taps whatever
+// ktot is.
+template <typename T, int C_PER, int K, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, (Cfg<T, C_PER, K>::MIN_BLOCKS))
 dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
-               const T* __restrict__ offset,  // (n, dg*2K, oh, ow)
-               const T* __restrict__ mask,    // (n, dg*K, oh, ow)
-               const T* __restrict__ wt,      // (dg, K, C_PER, cout)
+               const T* __restrict__ offset,  // (n, dg*2ktot, oh, ow)
+               const T* __restrict__ mask,    // (n, dg*ktot, oh, ow)
+               const T* __restrict__ wt,      // (dg, ktot, C_PER, cout)
                const T* __restrict__ dout,    // (n, cout, oh, ow)
                float* __restrict__ dx,        // (n, h, w, cin), zeroed
-               T* __restrict__ doffset,       // (n, dg*2K, oh, ow)
-               T* __restrict__ dmask,         // (n, dg*K, oh, ow)
-               float* __restrict__ partial,   // (nb, dg, K*C_PER, cout)
+               T* __restrict__ doffset,       // (n, dg*2ktot, oh, ow)
+               T* __restrict__ dmask,         // (n, dg*ktot, oh, ow)
+               float* __restrict__ partial,   // (nb, dg, ktot*C_PER, cout)
                int n, int h, int w, int cin, int cout, int oh, int ow,
-               int kw, int stride, int pad, int dil, int dg, bool vec) {
+               int kw, int stride, int pad, int dil, int dg, int ktot_arg,
+               bool vec) {
   using C = Cfg<T, C_PER, K>;
+  // this block's taps k0 .. k0 + kn - 1 of ktot (compile-time 0, K, K
+  // unless CHUNKED)
+  const int ktot = CHUNKED ? ktot_arg : K;
+  const int chunks = CHUNKED ? (ktot + K - 1) / K : 1;
+  const int k0 = (blockIdx.y % chunks) * K;
+  const int kn = CHUNKED ? min(K, ktot - k0) : K;
+  const int kcv = kn * C_PER;
   constexpr int CV = C_PER >= 4 ? 4 : C_PER;
   extern __shared__ float4 smem4[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
@@ -308,15 +336,15 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
   const int P = oh * ow;
   const int tiles = (P + TP - 1) / TP;
   const int total = n * tiles;
-  const int g = blockIdx.y, z = blockIdx.z, nz = gridDim.z;
+  const int g = blockIdx.y / chunks, z = blockIdx.z, nz = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mt = warp & 3, nt0 = warp >> 2;
-  const T* wg = wt + (size_t)g * C::KC * cout;
+  const T* wg = wt + ((size_t)g * ktot + k0) * C_PER * cout;
   const long long plane = (long long)h * w * cin;
 
-  for (int i = C::KC * C::LDC + tid; i < C::KCN * C::LDC; i += THREADS)
+  for (int i = kcv * C::LDC + tid; i < C::KCN * C::LDC; i += THREADS)
     dc_s[i] = 0.f;
-  if (z == 0 && nz == 1) stage_w<T, C_PER, K>(W_s, wg, 0, cout, tid);
+  if (z == 0 && nz == 1) stage_w<T, C_PER, K>(W_s, wg, kcv, 0, cout, tid);
 
   float acc_w[C::NTW][4];
 #pragma unroll
@@ -329,8 +357,8 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
     const int p0 = (t % tiles) * TP;
     const T* doutb = dout + (size_t)b * cout * P;
     const T* xg = x + b * plane + g * C_PER;
-    const T* offb = offset + (size_t)b * dg * 2 * K * P;
-    const T* mb = mask + (size_t)b * dg * K * P;
+    const T* offb = offset + (size_t)b * dg * 2 * ktot * P;
+    const T* mb = mask + (size_t)b * dg * ktot * P;
 
     if (z == 0) {
       // ---- 1. dcol^T = dout^T . W_g over every channel chunk; chunk 0
@@ -341,7 +369,7 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc_d[j][e] = 0.f;
       for (int c = nz - 1; c >= 0; --c) {
-        if (nz > 1) stage_w<T, C_PER, K>(W_s, wg, c * TO, cout, tid);
+        if (nz > 1) stage_w<T, C_PER, K>(W_s, wg, kcv, c * TO, cout, tid);
         stage_dout<T>(d_s, doutb, c * TO, cout, p0, P, vec, tid);
         __syncthreads();
 #ifndef DCN_BWD_NO_MMA
@@ -356,11 +384,11 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
           const int nt = nt0 + 2 * j;
           if (nt >= C::NT) break;
           const int kc = 8 * nt + kq;
-          if (kc < C::KC) {
+          if (kc < kcv) {
             dc_s[kc * C::LDC + p1] = acc_d[j][0];
             dc_s[kc * C::LDC + p1 + 8] = acc_d[j][2];
           }
-          if (kc + 1 < C::KC) {
+          if (kc + 1 < kcv) {
             dc_s[(kc + 1) * C::LDC + p1] = acc_d[j][1];
             dc_s[(kc + 1) * C::LDC + p1 + 8] = acc_d[j][3];
           }
@@ -370,10 +398,10 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
 
       // ---- 2. per (tap, pixel): dx scatter, doffset, dmask, column ----
       float* dxg = dx + b * plane + g * C_PER;
-      T* doffb = doffset + (size_t)b * dg * 2 * K * P;
-      T* dmb = dmask + (size_t)b * dg * K * P;
+      T* doffb = doffset + (size_t)b * dg * 2 * ktot * P;
+      T* dmb = dmask + (size_t)b * dg * ktot * P;
 #ifndef DCN_BWD_NO_ITEMS
-      for (int it = tid; it < K * TP; it += THREADS) {
+      for (int it = tid; it < kn * TP; it += THREADS) {
         const int pl = it % TP, k = it / TP;
         const int p = p0 + pl;
         float* dcp = dc_s + k * C_PER * C::LDC + pl;  // channel c: c * LDC
@@ -382,7 +410,7 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
           for (int c = 0; c < C_PER; ++c) dcp[c * C::LDC] = 0.f;
           continue;
         }
-        const dcn::Sample s = dcn::sample_at(offb, mb, g, k, p, P, K,
+        const dcn::Sample s = dcn::sample_at(offb, mb, g, k0 + k, p, P, ktot,
                                              p / ow, p % ow, kw, h, w,
                                              stride, pad, dil);
         const bool ok00 = s.vy0 && s.vx0, ok01 = s.vy0 && s.vx1;
@@ -437,24 +465,25 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
 #pragma unroll
           for (int c = 0; c < C_PER; ++c) dcp[c * C::LDC] = 0.f;
         }
-        dmb[(size_t)(g * K + k) * P + p] = from_f32<T>(gm);
-        doffb[(size_t)(g * 2 * K + 2 * k) * P + p] = from_f32<T>(gy);
-        doffb[(size_t)(g * 2 * K + 2 * k + 1) * P + p] = from_f32<T>(gx);
+        const int kg = k0 + k;
+        dmb[(size_t)(g * ktot + kg) * P + p] = from_f32<T>(gm);
+        doffb[(size_t)(g * 2 * ktot + 2 * kg) * P + p] = from_f32<T>(gy);
+        doffb[(size_t)(g * 2 * ktot + 2 * kg + 1) * P + p] = from_f32<T>(gx);
       }
 #endif
     } else {
       // channels beyond the first 64: the column and this chunk of dout
       stage_dout<T>(d_s, doutb, z * TO, cout, p0, P, vec, tid);
-      for (int it = tid; it < K * TP; it += THREADS) {
+      for (int it = tid; it < kn * TP; it += THREADS) {
         const int pl = it % TP, k = it / TP;
         const int p = p0 + pl;
         float v[C_PER];
 #pragma unroll
         for (int c = 0; c < C_PER; ++c) v[c] = 0.f;
         if (p < P) {
-          const dcn::Sample s = dcn::sample_at(offb, mb, g, k, p, P, K,
-                                               p / ow, p % ow, kw, h, w,
-                                               stride, pad, dil);
+          const dcn::Sample s = dcn::sample_at(offb, mb, g, k0 + k, p, P,
+                                               ktot, p / ow, p % ow, kw, h,
+                                               w, stride, pad, dil);
           dcn::masked_column<T, C_PER>(xg, s, w, cin, v);
         }
         float* dcp = dc_s + k * C_PER * C::LDC + pl;
@@ -483,8 +512,10 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
     __syncthreads();
   }
 
-  // this block's partial: dW[kc][o] for its 64 channels
-  float* pb = partial + ((size_t)blockIdx.x * dg + g) * C::KC * cout;
+  // this block's partial: dW[k0 * C_PER + kc][o] for its taps and its 64
+  // channels
+  float* pb = partial +
+              (((size_t)blockIdx.x * dg + g) * ktot + k0) * C_PER * cout;
   const int o1 = z * TO + 16 * mt + (lane >> 2), kq = 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < C::NTW; ++j) {
@@ -495,20 +526,21 @@ dcn_bwd_kernel(const T* __restrict__ x,       // (n, h, w, cin)
     for (int hh = 0; hh < 2; ++hh) {
       const int o = o1 + 8 * hh;
       if (o >= cout) continue;
-      if (kc < C::KC) pb[(size_t)kc * cout + o] = acc_w[j][2 * hh];
-      if (kc + 1 < C::KC) pb[(size_t)(kc + 1) * cout + o] = acc_w[j][2 * hh + 1];
+      if (kc < kcv) pb[(size_t)kc * cout + o] = acc_w[j][2 * hh];
+      if (kc + 1 < kcv) pb[(size_t)(kc + 1) * cout + o] = acc_w[j][2 * hh + 1];
     }
   }
 }
 
-template <typename T, int C_PER, int K>
+template <typename T, int C_PER, int K, bool CHUNKED>
 int launch(const T* x, const T* offset, const T* mask, const T* wt,
            const T* dout, float* dx, T* doffset, T* dmask, float* partial,
            int nb, int n, int h, int w, int cin, int cout, int oh, int ow,
-           int kw, int stride, int pad, int dil, int dg,
+           int kh, int kw, int stride, int pad, int dil, int dg,
            cudaStream_t stream) {
   using C = Cfg<T, C_PER, K>;
-  auto kernel = dcn_bwd_kernel<T, C_PER, K>;
+  auto kernel = dcn_bwd_kernel<T, C_PER, K, CHUNKED>;
+  const int chunks = tap_chunks(kh, kw);
   if (C::SMEM > 48 * 1024) {
     const int e = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
@@ -516,10 +548,10 @@ int launch(const T* x, const T* offset, const T* mask, const T* wt,
   }
   const int P = oh * ow;
   const bool vec = P % (16 / (int)sizeof(T)) == 0 && (uintptr_t)dout % 16 == 0;
-  const dim3 grid(nb, dg, (cout + TO - 1) / TO);
+  const dim3 grid(nb, dg * chunks, (cout + TO - 1) / TO);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(
       x, offset, mask, wt, dout, dx, doffset, dmask, partial, n, h, w, cin,
-      cout, oh, ow, kw, stride, pad, dil, dg, vec);
+      cout, oh, ow, kw, stride, pad, dil, dg, kh * kw, vec);
   return (int)cudaGetLastError();
 }
 
@@ -540,23 +572,25 @@ int dispatch(const void* x, const void* offset, const void* mask,
   auto* dmt = static_cast<T*>(dmask);
   auto* pf = static_cast<float*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
-#define DCN_CASE(C, KK)                                                      \
-  if (cin / dg == C && kh * kw == KK)                                        \
-    return launch<T, C, KK>(xt, ot, mt, wt_, dt, dxf, dot, dmt, pf, nb, n,   \
-                            h, w, cin, cout, oh, ow, kw, stride, pad, dil,   \
-                            dg, st);
-  DCN_CASE(1, 9)
-  DCN_CASE(2, 9)
-  DCN_CASE(4, 9)
-  DCN_CASE(8, 9)
-  DCN_CASE(16, 9)
-  DCN_CASE(32, 9)
-  DCN_CASE(1, 1)
-  DCN_CASE(2, 1)
-  DCN_CASE(4, 1)
-  DCN_CASE(8, 1)
-  DCN_CASE(16, 1)
-  DCN_CASE(32, 1)
+  // 3x3 and 1x1 (EDVR's) with the tap count fixed at compile time; any
+  // other kh x kw in chunks of BWD_TAP_CHUNK taps
+  const int K = kh * kw;
+#define DCN_CASE(C, KK, CH)                                                  \
+  if (cin / dg == C)                                                         \
+    return launch<T, C, KK, CH>(xt, ot, mt, wt_, dt, dxf, dot, dmt, pf, nb,  \
+                                n, h, w, cin, cout, oh, ow, kh, kw, stride,  \
+                                pad, dil, dg, st);
+#define DCN_CPERS(KK, CH)                                                    \
+  DCN_CASE(1, KK, CH) DCN_CASE(2, KK, CH) DCN_CASE(4, KK, CH)                \
+  DCN_CASE(8, KK, CH) DCN_CASE(16, KK, CH) DCN_CASE(32, KK, CH)
+  if (K == 9) {
+    DCN_CPERS(9, false)
+  } else if (K == 1) {
+    DCN_CPERS(1, false)
+  } else {
+    DCN_CPERS(BWD_TAP_CHUNK, true)
+  }
+#undef DCN_CPERS
 #undef DCN_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -571,9 +605,9 @@ int dispatch(const void* x, const void* offset, const void* mask,
 // accumulated with atomics) and allocates `doffset`, `dmask` and the (nb,
 // dg, K*C_PER, cout) `partial` workspace, whose sum over its first axis is
 // dW in the forward's (dg, K, C_PER, cout) weight layout; nb blocks walk
-// each group's pixel tiles. Returns the cudaError_t of the launch (0 on
-// success); an unsupported cin/dg split or tap count returns
-// cudaErrorInvalidValue without launching.
+// each group's pixel tiles (times dcn_bwd_tap_chunks(kh, kw) tap chunks).
+// Returns the cudaError_t of the launch (0 on success); an
+// unsupported cin/dg split returns cudaErrorInvalidValue without launching.
 #define DCN_BWD_ARGS                                                         \
   const void *x, const void *offset, const void *mask, const void *wt,       \
       const void *dout, void *dx, void *doffset, void *dmask, void *partial, \
@@ -589,4 +623,10 @@ extern "C" int dcn_bwd_f32(DCN_BWD_ARGS) {
 
 extern "C" int dcn_bwd_bf16(DCN_BWD_ARGS) {
   return dispatch<__nv_bfloat16>(DCN_BWD_PASS);
+}
+
+// The tap chunks of a kh x kw backward: each (group, 64 output channels)
+// takes nb blocks per chunk. Launches nothing.
+extern "C" int dcn_bwd_tap_chunks(int kh, int kw) {
+  return tap_chunks(kh, kw);
 }

@@ -1,5 +1,5 @@
 """Data layer: datasets by YAML ``type`` name, the loader factory and the
-CPU prefetcher (reference: basicsr/data/__init__.py and
+CPU and CUDA prefetchers (reference: basicsr/data/__init__.py and
 prefetch_dataloader.py)."""
 
 from __future__ import annotations
@@ -9,14 +9,15 @@ from copy import deepcopy
 import torch
 
 from edvr_tpu_torch.data import (  # noqa: F401 (registers)
-    ffhq_dataset, paired_image_dataset, reds_dataset, single_image_dataset,
-    video_test_dataset)
+    ffhq_dataset, paired_image_dataset, reds_dataset, reds_packed_dataset,
+    single_image_dataset, video_test_dataset, vimeo90k_dataset)
 from edvr_tpu_torch.data.data_sampler import EnlargedSampler
+from edvr_tpu_torch.data.prefetcher import CUDAPrefetcher
 from edvr_tpu_torch.utils import get_root_logger
 from edvr_tpu_torch.utils.registry import DATASET_REGISTRY
 
 __all__ = ['create_dataset', 'create_dataloader', 'CPUPrefetcher',
-           'EnlargedSampler']
+           'CUDAPrefetcher', 'EnlargedSampler']
 
 
 def create_dataset(dataset_opt: dict):
@@ -40,7 +41,7 @@ def _seed_worker(worker_id):
 
 
 def create_dataloader(dataset, dataset_opt, num_gpu=1, dist=False,
-                      sampler=None, seed=None):
+                      sampler=None, seed=None, pin_memory=False):
     """A loader with the reference's phase semantics
     (reference: basicsr/data/__init__.py:56-119): a training loader drops
     the last partial batch and reseeds each worker from ``seed``; a
@@ -50,7 +51,8 @@ def create_dataloader(dataset, dataset_opt, num_gpu=1, dist=False,
     training batch holds ``batch_size_per_gpu x max(num_gpu, 1)`` items
     loaded by ``num_worker_per_gpu x max(num_gpu, 1)`` workers, as in
     ``edvr_tpu/data/__init__.py:50-60``; with ``dist`` each process loads
-    its own device's share.
+    its own device's share. ``pin_memory`` pins a training loader's
+    batches (for :class:`CUDAPrefetcher`'s asynchronous copies).
     """
     phase = dataset_opt['phase']
     if phase == 'train':
@@ -65,7 +67,7 @@ def create_dataloader(dataset, dataset_opt, num_gpu=1, dist=False,
             drop_last=True, worker_init_fn=_seed_worker,
             generator=torch.Generator().manual_seed(seed or 0),
             multiprocessing_context='spawn' if workers else None,
-            persistent_workers=workers > 0)
+            persistent_workers=workers > 0, pin_memory=pin_memory)
     if phase in ('val', 'test'):
         return torch.utils.data.DataLoader(dataset, batch_size=1,
                                            shuffle=False, num_workers=0)

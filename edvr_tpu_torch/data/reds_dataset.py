@@ -6,10 +6,13 @@ clip, optional reversal), validation clips left out, one paired crop and
 one flip/rotation draw shared by the window and its GT frame.
 
 Items are ``lq`` (t, c, h, w) and ``gt`` (c, h, w) float32 RGB tensors in
-[0, 1] and the ``key``. Every draw comes from the dataset's own
-``random.Random`` (``rng``), in the JAX dataset's order. The loader's
-``worker_init_fn`` reseeds each worker's copy. Optical flows and the LMDB
-backend are not ported (ROADMAP A.9).
+[0, 1] and the ``key``; with ``dataroot_flow``, also ``flow`` (t, 2, h, w):
+the centre frame's quantized flows to its neighbours (PNGs ``<frame>_p<i>``
+and ``_n<i>``, past then future, ``max_val`` 20, not denormalised), cropped
+and augmented with the window, a zero flow at the centre. Every draw comes
+from the dataset's own ``random.Random`` (``rng``), in the JAX dataset's
+order. The loader's ``worker_init_fn`` reseeds each worker's copy. The LMDB
+backend is not ported (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from edvr_tpu_torch.data.file_client import FileClient
 from edvr_tpu_torch.data.transforms import augment, paired_random_crop
 from edvr_tpu_torch.utils import get_root_logger, imfrombytes, img2tensor
+from edvr_tpu_torch.utils.flow_util import dequantize_flow
 from edvr_tpu_torch.utils.registry import DATASET_REGISTRY
 
 # REDS clips are exactly 100 frames, 00000000..00000099
@@ -49,9 +53,8 @@ class REDSDataset(torch.utils.data.Dataset):
             opt.get('seed', 0))
         self.gt_root = Path(opt['dataroot_gt'])
         self.lq_root = Path(opt['dataroot_lq'])
-        if opt.get('dataroot_flow') is not None:
-            raise NotImplementedError('REDS optical flows are not ported '
-                                      'yet (ROADMAP A.9)')
+        flow = opt.get('dataroot_flow')
+        self.flow_root = Path(flow) if flow is not None else None
         if opt['io_backend']['type'] != 'disk':
             raise NotImplementedError(
                 f"io_backend {opt['io_backend']['type']!r} is not ported "
@@ -91,6 +94,20 @@ class REDSDataset(torch.utils.data.Dataset):
     def _read(self, path):
         return imfrombytes(self.file_client.get(path), float32=True)
 
+    def _flows(self, clip, center):
+        """The centre frame's flows to its neighbours, past then future
+        (reference: reds_dataset.py:160-198)."""
+        tags = ([f'_p{i}' for i in range(self.half_window, 0, -1)] +
+                [f'_n{i}' for i in range(1, self.half_window + 1)])
+        flows = []
+        for tag in tags:
+            packed = imfrombytes(self.file_client.get(
+                self.flow_root / clip / f'{center:08d}{tag}.png'),
+                flag='grayscale')
+            dx, dy = np.split(packed, 2, axis=0)
+            flows.append(dequantize_flow(dx, dy, max_val=20, denorm=False))
+        return flows
+
     def __getitem__(self, index):
         if self.file_client is None:
             self.file_client = FileClient('disk')
@@ -102,15 +119,31 @@ class REDSDataset(torch.utils.data.Dataset):
         img_gt = self._read(gt_path)
         img_lqs = [self._read(self.lq_root / clip / f'{f:08d}.png')
                    for f in window]
-        img_gt, img_lqs = paired_random_crop(img_gt, img_lqs,
+        # the flows ride along through the paired crop
+        flows = (self._flows(clip, center) if self.flow_root is not None
+                 else [])
+        img_gt, img_lqs = paired_random_crop(img_gt, img_lqs + flows,
                                              self.opt['gt_size'],
                                              self.opt['scale'], self.rng,
                                              str(gt_path))
+        img_lqs, flows = img_lqs[:self.num_frame], img_lqs[self.num_frame:]
         img_lqs.append(img_gt)
-        frames = img2tensor(augment(img_lqs, self.rng, self.opt['use_flip'],
-                                    self.opt['use_rot']))
-        return {'lq': torch.stack(frames[:-1], 0), 'gt': frames[-1],
+        if self.flow_root is None:
+            frames = img2tensor(augment(img_lqs, self.rng,
+                                        self.opt['use_flip'],
+                                        self.opt['use_rot']))
+        else:
+            frames, flows = augment(img_lqs, self.rng, self.opt['use_flip'],
+                                    self.opt['use_rot'], flows)
+            frames = img2tensor(frames)
+        item = {'lq': torch.stack(frames[:-1], 0), 'gt': frames[-1],
                 'key': key}
+        if self.flow_root is not None:
+            flows = img2tensor(flows, bgr2rgb=False)
+            # the centre frame has no flow to itself: a zero placeholder
+            flows.insert(self.half_window, torch.zeros_like(flows[0]))
+            item['flow'] = torch.stack(flows, 0)
+        return item
 
     def __len__(self):
         return len(self.keys)

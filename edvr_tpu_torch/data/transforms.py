@@ -51,10 +51,13 @@ def paired_random_crop(img_gts, img_lqs, gt_patch_size: int, scale: int,
             lqs[0] if len(lqs) == 1 else lqs)
 
 
-def augment(imgs, rng, hflip=True, rotation=True, return_status=False):
+def augment(imgs, rng, hflip=True, rotation=True, flows=None,
+            return_status=False):
     """Random horizontal flip, vertical flip and 90-degree transpose, one
-    draw shared by every frame (reference: transforms.py:87-151; optical
-    flows are not ported)."""
+    draw shared by every frame and optical flow (reference:
+    transforms.py:87-151). A flow's components follow the geometry: a
+    horizontal flip negates u, a vertical flip v, the transpose swaps
+    them. With ``flows`` returns (images, flows)."""
     do_hflip = hflip and rng.random() < 0.5
     do_vflip = rotation and rng.random() < 0.5
     do_rot90 = rotation and rng.random() < 0.5
@@ -68,9 +71,26 @@ def augment(imgs, rng, hflip=True, rotation=True, return_status=False):
             img = img.transpose(1, 0, 2)
         return np.ascontiguousarray(img)
 
-    single = not isinstance(imgs, list)
-    out = [apply(v) for v in ([imgs] if single else imgs)]
-    result = out[0] if len(out) == 1 else out
+    def apply_flow(flow):
+        out = flow.copy()
+        if do_hflip:
+            out = out[:, ::-1, :]
+            out[:, :, 0] = -out[:, :, 0]
+        if do_vflip:
+            out = out[::-1, :, :]
+            out[:, :, 1] = -out[:, :, 1]
+        if do_rot90:
+            out = out.transpose(1, 0, 2)[:, :, [1, 0]]
+        return np.ascontiguousarray(out)
+
+    def each(fn, items):
+        single = not isinstance(items, list)
+        out = [fn(v) for v in ([items] if single else items)]
+        return out[0] if len(out) == 1 else out
+
+    result = each(apply, imgs)
+    if flows is not None:
+        return result, each(apply_flow, flows)
     if return_status:
         return result, (do_hflip, do_vflip, do_rot90)
     return result

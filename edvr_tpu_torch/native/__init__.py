@@ -47,10 +47,14 @@ SIGNATURES = {
     'blend_matmul': ('blend_matmul_f32', [_P] * 5 + [_I] * 4 + [_P]),
     'blend_matmul_bf16': ('blend_matmul_bf16', [_P] * 5 + [_I] * 4 + [_P]),
 }
+# entries that launch nothing and answer for a source's launches (not in
+# LAUNCHES): the tap chunks of a kh x kw backward, which size its grid
+QUERIES = {'dcn_bwd_tap_chunks': [_I, _I]}
 # the source in csrc/ that defines each entry
 SOURCE = {'dcn_fwd': 'dcn_fwd', 'dcn_fwd_bf16': 'dcn_fwd',
           'dcn_fwd_ablate_f32': 'dcn_fwd', 'dcn_fwd_ablate_bf16': 'dcn_fwd',
           'dcn_bwd': 'dcn_bwd', 'dcn_bwd_bf16': 'dcn_bwd',
+          'dcn_bwd_tap_chunks': 'dcn_bwd',
           'row_gather': 'row_gather', 'blend_matmul': 'blend_matmul',
           'blend_matmul_bf16': 'blend_matmul'}
 SOURCES = sorted(set(SOURCE.values()))
@@ -135,12 +139,12 @@ def build_all(names=None) -> dict:
 
 
 def load(name: str):
-    """The bound C entry point of kernel entry ``name``, building its
-    source if needed."""
+    """The bound C entry point of kernel entry or query ``name``, building
+    its source if needed."""
     fn = _libs.get(name)
     if fn is not None:
         return fn
-    symbol, argtypes = SIGNATURES[name]
+    symbol, argtypes = SIGNATURES.get(name) or (name, QUERIES[name])
     build_all([SOURCE[name]])
     fn = getattr(ctypes.CDLL(_so_path(SOURCE[name])), symbol)
     fn.argtypes = argtypes

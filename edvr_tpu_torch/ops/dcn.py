@@ -389,17 +389,17 @@ def dcn_bwd_cuda(dout, x, offset, mask, weight, stride=1, padding=0,
     counted once). In bfloat16 the kernel sums in float32: ``dx`` into a
     float32 buffer (bf16 atomics would lose the sum) and ``d_weight`` from
     float32 partials, both cast here. ``dx`` is accumulated with
-    atomics, so its low bits vary from run to run. Taps of 1x1 or 3x3
-    only; raises on any input the kernel does not take.
+    atomics, so its low bits vary from run to run. Any kh x kw: taps other
+    than 3x3 and 1x1 run in chunks of at most 9 (blocks of the one launch,
+    counted by ``csrc/dcn_bwd.cu``'s ``dcn_bwd_tap_chunks``), so the
+    kernel's shared memory is that of 9 taps whatever the size. Raises on
+    any input the kernel does not take.
     """
     tensors = {'dout': dout, 'x': x, 'offset': offset, 'mask': mask,
                'weight': weight}
     n, cin, h, w, cout, kh, kw, oh, ow = _check_cuda_args(
         'dcn_bwd', tensors, x, offset, mask, weight, None, stride, padding,
         dilation, deformable_groups)
-    if kh * kw not in (1, 9):
-        raise ValueError(f'dcn_bwd: {kh}x{kw} taps; the kernel takes 1x1 '
-                         'and 3x3')
     if dout.shape != (n, cout, oh, ow):
         raise ValueError(f'dcn_bwd: dout shape {tuple(dout.shape)} != '
                          f'{(n, cout, oh, ow)}')
@@ -414,13 +414,14 @@ def dcn_bwd_cuda(dout, x, offset, mask, weight, stride=1, padding=0,
     dx_cl = torch.zeros(x_cl.shape, device=x.device, dtype=torch.float32)
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
-    # blocks per (deformable group, 64 output channels): BWD_BLOCKS_PER_SM
-    # per SM in all, each walking its share of the pixel tiles into one
-    # partial
+    # blocks per (deformable group, tap chunk, 64 output channels):
+    # BWD_BLOCKS_PER_SM per SM in all, each walking its share of the pixel
+    # tiles into one partial
     tiles = n * -(-(oh * ow) // 64)
+    chunks = native.load('dcn_bwd_tap_chunks')(kh, kw)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nb = max(1, min(tiles, -(-BWD_BLOCKS_PER_SM * sms
-                             // (dg * -(-cout // 64)))))
+                             // (dg * chunks * -(-cout // 64)))))
     partial = torch.empty(nb, dg, kh * kw * c_per, cout, device=x.device,
                           dtype=torch.float32)
     with torch.cuda.device(x.device):

@@ -13,7 +13,8 @@ cuDNN's algorithm choice is read once per process: the shipped YAMLs
 EDVR-M one for comparison) with the cuts of :func:`cli_args` given to
 ``edvr_tpu_torch.train.parse_options`` as ``--force_yml``. The child runs
 ``main``'s steps in order: ``parse_options``, the cuDNN choice (the CLI's
-own, ``train.use_train_cudnn_policy``, or one of :data:`POLICIES`: PyTorch's
+own, ``train.use_train_cudnn_policy``, which caps EDVR-L in fp32 only and
+leaves bf16 runs PyTorch's default, or one of :data:`POLICIES`: PyTorch's
 default, ``test.INFERENCE_CUDNN_ENV`` or either of its two variables
 alone), ``create_train_val_dataloader``,
 ``create_model`` (seeded; each DCN pack's ``conv_offset`` weights drawn
@@ -172,7 +173,8 @@ def runs():
             for mp in ('fp32', 'bf16'):
                 out.append((f'c6_halves_{net}_b{batch}_{mp}', yml, batch,
                             False, mp, 'default', batch == 4, True))
-    # the EDVR-L YAMLs under the CLI's own choice
+    # the EDVR-L YAMLs under the CLI's own choice (train_cudnn_env: capped
+    # in fp32, the default in bf16), with a validation pass at batch 4
     for yml in ('train_EDVR_L_x4_SR_REDS_woTSA', 'train_EDVR_L_x4_SR_REDS'):
         for batch in (4, 32):
             for remat in (False, True):
@@ -180,7 +182,8 @@ def runs():
                     tag = 'woTSA' if yml.endswith('woTSA') else 'TSA'
                     out.append((f'{tag}_b{batch}_{mp}'
                                 f'{"_remat" if remat else ""}', yml, batch,
-                                remat, mp, 'cli', False, False))
+                                remat, mp, 'cli', batch == 4 and not remat,
+                                False))
     return out
 
 

@@ -10,10 +10,11 @@ fp32; bf16: the JAX engine's policy, ``models/sr_model.py``) and
 validation is fp32. The loop is the reference's: epochs over an enlarged
 sampler, message logging at ``print_freq``, checkpoints at
 ``save_checkpoint_freq``, validation at ``val_freq``, resume from
-``path.resume_state``. ``parse_options`` is shared with the test CLI and
-turns TF32 off for both. Before its first convolution the run takes
-cuDNN's algorithm choice by the network it trains
-(:func:`use_train_cudnn_policy`).
+``path.resume_state``; batches come through the prefetcher that
+``prefetch_mode`` names (:func:`create_prefetcher`). ``parse_options`` is
+shared with the test CLI and turns TF32 off for both. Before its first
+convolution the run takes cuDNN's algorithm choice by the network it
+trains and its precision (:func:`use_train_cudnn_policy`).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ import time
 
 import torch
 
-from edvr_tpu_torch.data import (CPUPrefetcher, EnlargedSampler,
-                                 create_dataloader, create_dataset)
+from edvr_tpu_torch.data import (CPUPrefetcher, CUDAPrefetcher,
+                                 EnlargedSampler, create_dataloader,
+                                 create_dataset)
 from edvr_tpu_torch.models import create_model
 from edvr_tpu_torch.models.base_model import load_resume_state
 from edvr_tpu_torch.utils import (MessageLogger, check_resume, init_loggers,
@@ -76,33 +78,56 @@ def parse_options(is_train=True, args=None):
     return opt
 
 
-def train_cudnn_env(net_opt):
-    """cuDNN's algorithm choice for training ``net_opt``'s network, as the
-    environment to set before the process's first convolution.
+def train_cudnn_env(net_opt, mixed_precision=None):
+    """cuDNN's algorithm choice for training ``net_opt``'s network at the
+    run's ``train.mixed_precision`` (None: fp32), as the environment to set
+    before the process's first convolution.
 
-    EDVR-L (an EDVR of 128 features or more) takes the test CLI's
+    EDVR-L (an EDVR of 128 features or more) in fp32 takes the test CLI's
     (``test.INFERENCE_CUDNN_ENV``) for its whole run: under PyTorch's
-    default (cuDNN v8 API heuristics, TF32 off) some of its fp32
-    convolutions take FFT algorithms with ~18 GB workspaces, which made its
-    validation window (run every ``val_freq``) ~4x slower at ~10x the
-    memory and its fp32 step ~3x slower; either variable alone keeps the
-    FFT choice. The capped choice costs its bf16 step ~2x. EDVR-M and every
-    other network keep the default, under which EDVR-M's bf16 step is ~2x
-    faster and its fp32 step level. The readings are in PERF.md (``python
-    -m edvr_tpu_torch.tools.train_edvr_l``)."""
+    default (cuDNN v8 API heuristics, TF32 off) its fp32 128-channel
+    convolutions take FFT algorithms with large workspaces, which make its
+    fp32 step ~1.5x slower; either variable alone keeps the FFT choice.
+    EDVR-L in bf16 (both shipped EDVR-L YAMLs), EDVR-M and every other
+    network keep the default: since PCD's concatenated-input convolutions
+    are split (``archs/edvr_arch.py::conv_cat``) the default no longer takes
+    FFT for EDVR-L's validation window, and the capped choice costs a bf16
+    step 1.9-3.4x. The readings are in PERF.md (``python -m
+    edvr_tpu_torch.tools.train_edvr_l``)."""
     from edvr_tpu_torch.test import INFERENCE_CUDNN_ENV
-    if net_opt.get('type') == 'EDVR' and net_opt.get('num_feat', 64) >= 128:
+    if (net_opt.get('type') == 'EDVR' and net_opt.get('num_feat', 64) >= 128
+            and not mixed_precision):
         return dict(INFERENCE_CUDNN_ENV)
     return {}
 
 
 def use_train_cudnn_policy(opt):
-    """Apply :func:`train_cudnn_env` of ``opt['network_g']`` to this
-    process (values already in the environment are kept); returns it."""
-    env = train_cudnn_env(opt['network_g'])
+    """Apply :func:`train_cudnn_env` of ``opt['network_g']`` at
+    ``opt['train']['mixed_precision']`` to this process (values already
+    in the environment are kept); returns it."""
+    env = train_cudnn_env(opt['network_g'],
+                          opt.get('train', {}).get('mixed_precision'))
     for key, value in env.items():
         os.environ.setdefault(key, value)
     return env
+
+
+# prefetch_mode values that copy batches to the card on a side stream
+# ('device' is the JAX package's name for it, edvr_tpu/train.py:164-177)
+PREFETCH_CUDA = ('cuda', 'device')
+
+
+def create_prefetcher(opt, train_loader):
+    """The training loop's prefetcher by ``prefetch_mode``: null or 'cpu'
+    a :class:`CPUPrefetcher`, 'cuda' or 'device' a :class:`CUDAPrefetcher`
+    onto the run's device (reference: train.py:164-177)."""
+    mode = opt['datasets']['train'].get('prefetch_mode')
+    if mode in (None, 'cpu'):
+        return CPUPrefetcher(train_loader)
+    if mode in PREFETCH_CUDA:
+        return CUDAPrefetcher(train_loader, opt.get('device') or 'cuda')
+    raise ValueError(f'prefetch_mode {mode!r}: expected null, cpu, cuda or '
+                     'device')
 
 
 def create_train_val_dataloader(opt, logger):
@@ -118,7 +143,10 @@ def create_train_val_dataloader(opt, logger):
             train_loader = create_dataloader(
                 train_set, dataset_opt, num_gpu=opt['num_gpu'],
                 dist=opt['dist'], sampler=train_sampler,
-                seed=opt['manual_seed'])
+                seed=opt['manual_seed'],
+                pin_memory=(dataset_opt.get('prefetch_mode') in PREFETCH_CUDA
+                            and torch.device(opt.get('device') or 'cuda')
+                            .type == 'cuda'))
             # one process feeds all num_gpu devices
             # (edvr_tpu/train.py:107-110)
             num_iter_per_epoch = math.ceil(
@@ -171,11 +199,8 @@ def main(args=None):
         current_iter = 0
 
     msg_logger = MessageLogger(opt, current_iter + 1)
-    prefetch_mode = opt['datasets']['train'].get('prefetch_mode')
-    if prefetch_mode not in (None, 'cpu'):
-        raise NotImplementedError(f'prefetch_mode {prefetch_mode!r} is not '
-                                  'ported yet (ROADMAP A.9)')
-    prefetcher = CPUPrefetcher(train_loader)
+    prefetcher = create_prefetcher(opt, train_loader)
+    logger.info(f'Prefetcher: {prefetcher.__class__.__name__}')
     val_opt = opt.get('val')
 
     logger.info(f'Start training from epoch: {start_epoch}, '

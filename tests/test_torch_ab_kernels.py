@@ -59,6 +59,26 @@ def test_bwd_bound_at_training_l1(dtype, want_ms, want_by):
     assert fp32_pipe_ms == pytest.approx(0.1803, abs=1e-4)
 
 
+@pytest.mark.parametrize('bound', ['dcn_bound', 'dcn_bwd_bound'])
+def test_bound_counts_the_output_size(bound):
+    """1x3 taps without padding (the taps check's case): the output is
+    64x62, not the input's 64x64, and the operations and the bytes of the
+    output (forward) or dout (backward) are counted at 64x62."""
+    n, c, h, w, dg, K = 20, 64, 64, 64, 8, 3
+    oh, ow = 64, 62
+    args = [meta(n, c, h, w), meta(n, dg * 2 * K, oh, ow),
+            meta(n, dg * K, oh, ow), meta(c, c, 1, 3)]
+    inputs = sum(a.numel() for a in args)
+    if bound == 'dcn_bound':
+        args.append(meta(c))
+        passes, elems = 1, inputs + c + n * c * oh * ow
+    else:
+        passes, elems = 2, 2 * inputs + n * c * oh * ow
+    _, _, flops, nbytes, _ = getattr(chip_smoke, bound)(*args)
+    assert flops == passes * 2 * n * oh * ow * c * c * K
+    assert nbytes == 4 * elems
+
+
 @pytest.mark.parametrize('dtype,want_ms,want_by', [
     (torch.float32, 0.1287, 'operations'),   # 3 x 21.2 GFLOP of TF32
     (torch.bfloat16, 0.0592, 'bytes'),       # 2 x 21.2 GFLOP: 0.043 ms

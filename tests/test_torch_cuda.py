@@ -44,10 +44,13 @@ def cuda():
 
 def _case(seed, n, cin, cout, h, w, dg, k=3, stride=1, padding=1,
           dilation=1, far=0.0, bias=True):
+    """Seeded DCN inputs on the card; ``k`` is a square tap size or a
+    (kh, kw) pair."""
     rng = np.random.RandomState(seed)
-    K = k * k
-    oh = (h + 2 * padding - (dilation * (k - 1) + 1)) // stride + 1
-    ow = (w + 2 * padding - (dilation * (k - 1) + 1)) // stride + 1
+    kh, kw = (k, k) if isinstance(k, int) else k
+    K = kh * kw
+    oh = (h + 2 * padding - (dilation * (kh - 1) + 1)) // stride + 1
+    ow = (w + 2 * padding - (dilation * (kw - 1) + 1)) // stride + 1
     x = rng.randn(n, cin, h, w)
     off = rng.uniform(-2, 2, (n, dg * 2 * K, oh, ow))
     if far:
@@ -55,7 +58,7 @@ def _case(seed, n, cin, cout, h, w, dg, k=3, stride=1, padding=1,
         off = np.where(sel, rng.uniform(10, 40, off.shape)
                        * rng.choice([-1, 1], off.shape), off)
     mask = 1 / (1 + np.exp(-rng.randn(n, dg * K, oh, ow)))
-    weight = rng.randn(cout, cin, k, k) / np.sqrt(cin * K)
+    weight = rng.randn(cout, cin, kh, kw) / np.sqrt(cin * K)
     b = rng.randn(cout) if bias else None
     t = [torch.from_numpy(np.asarray(a, np.float32)).cuda()
          for a in (x, off, mask, weight)]
@@ -247,12 +250,20 @@ def test_wrapper_refuses(cuda):
     with pytest.raises(ValueError):
         dcn.dcn_bwd_cuda(torch.zeros(1, 16, 4, 4, device=cuda), x, off,
                          mask, weight, **kw)
-    with pytest.raises(ValueError, match='taps'):  # 1x3: neither 1x1 nor 3x3
-        dcn.dcn_bwd_cuda(torch.zeros(1, 16, 8, 6, device=cuda), x,
-                         torch.zeros(1, 12, 8, 6, device=cuda),
-                         torch.zeros(1, 6, 8, 6, device=cuda),
-                         weight[:, :, :1, :].contiguous(),
-                         deformable_groups=2)
+    # 1x3 taps: neither 1x1 nor 3x3, computed in tap chunks, as autograd
+    # through the plain version gives them
+    w13 = weight[:, :, :1, :].contiguous()
+    gen = torch.Generator().manual_seed(6)
+    off13 = (torch.rand(1, 12, 8, 6, generator=gen) * 4 - 2).to(cuda)
+    mask13 = torch.rand(1, 6, 8, 6, generator=gen).to(cuda)
+    dout13 = torch.randn(1, 16, 8, 6, generator=gen).to(cuda)
+    got = dcn.dcn_bwd_cuda(dout13, x, off13, mask13, w13,
+                           deformable_groups=2)
+    want = _plain_grads([x, off13, mask13, w13, None],
+                        dict(deformable_groups=2), dout13)
+    for name, g, w in zip(('dx', 'd_offset', 'd_mask', 'd_weight'), got,
+                          want):
+        assert _rel_err(g, w) <= BWD_TOL, (name, _rel_err(g, w))
 
 
 def test_golden_edvr_m_on_cuda(cuda):
@@ -342,6 +353,58 @@ def test_bwd_kernel_matches_plain(cuda, geo):
                           want):
         assert g.shape == w.shape, name
         assert _rel_err(g, w) <= BWD_TOL, (name, _rel_err(g, w))
+
+
+# taps other than 3x3 and 1x1 (tap chunks of 9: 1x3 one ragged chunk, 5x5
+# three, 7x7 six), c_per 8 and 16, cout beyond 64 in one case
+TAPS_BWD_GEOS = [
+    dict(n=2, cin=64, cout=64, h=12, w=15, dg=8, k=(1, 3), padding=0),
+    dict(n=2, cin=64, cout=64, h=14, w=13, dg=8, k=5, padding=2, far=0.1),
+    dict(n=1, cin=32, cout=80, h=11, w=12, dg=2, k=7, padding=3),
+]
+
+
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+@pytest.mark.parametrize('geo', TAPS_BWD_GEOS)
+def test_bwd_kernel_any_taps(cuda, geo, dtype):
+    """The backward at taps other than 3x3 and 1x1 against autograd
+    through the plain version in float32 on the same (in bf16,
+    bf16-valued) inputs: at 25-49 taps the bf16 plain version's own dx,
+    summed in bf16 over up to 4 K corner terms, is off by up to ~4% of its
+    max, where the kernel sums in float32."""
+    if dtype == 'fp32':
+        args, kw = _case(13, **geo)
+        tol, entry = BWD_TOL, 'dcn_bwd'
+    else:
+        args, kw = _bf16_case(13, **geo)
+        tol, entry = BF16_BWD_TOL, 'dcn_bwd_bf16'
+    with torch.no_grad():
+        out = dcn.modulated_deform_conv_plain(*args, **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        14)).to(cuda, args[0].dtype)
+    before = dict(dcn.LAUNCHES)
+    got = dcn.dcn_bwd_cuda(dout, *args[:4], **kw)
+    want = _plain_grads([a if a is None else a.float() for a in args], kw,
+                        dout.float())
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == _launches(
+        **{entry: 1})
+    for name, g, w in zip(('dx', 'd_offset', 'd_mask', 'd_weight'), got,
+                          want):
+        assert g.shape == w.shape and g.dtype == args[0].dtype, name
+        assert _rel_err(g, w) <= tol, (name, _rel_err(g, w))
+
+
+def test_bwd_tap_chunks(cuda):
+    """The backward's tap chunks, which size its grid in dcn_bwd.cu and
+    its block count in the wrapper: one up to 9 taps (3x3, 1x1, 1x3),
+    then one per 9 more."""
+    from edvr_tpu_torch import native
+    chunks = native.load('dcn_bwd_tap_chunks')
+    assert [chunks(kh, kw) for kh, kw in
+            ((3, 3), (1, 1), (1, 3), (2, 5), (5, 5), (7, 7))] == \
+        [1, 1, 1, 2, 3, 6]
+    assert 'dcn_bwd_tap_chunks' not in native.LAUNCHES
 
 
 def test_bwd_integer_offsets(cuda):
@@ -1266,3 +1329,67 @@ def test_gan_step_on_card_matches_cpu(cuda, model_type, tmp_path):
         if 'running' in n:
             torch.testing.assert_close(b.cpu(), cpu_bufs[n], rtol=1e-4,
                                        atol=1e-5)
+
+
+def test_dfdnet_golden_on_card(cuda):
+    """DFDNet at full width on the card: the golden's BasicSR state dict
+    (spectral norms folded) loaded strictly, the 512 px face within 3e-4 of
+    max|out| of the golden output (tests/test_dfdnet.py's tolerance) and of
+    the CPU path, the same 16 dictionary entries as the CPU's."""
+    import chip_smoke as cs
+    from edvr_tpu_torch.archs.dfdnet_arch import DFDNet
+    from edvr_tpu_torch.tools.inference_dfdnet import dict_to
+    state, dict_feat, x, locs, ref, _ = cs.dfdnet_source()
+    outs, chosen = {}, {}
+    for dev in ('cpu', cuda):
+        net = DFDNet(num_feat=64)
+        net.load_state_dict(state, strict=True)
+        net = net.to(dev).eval()
+        with torch.no_grad():
+            outs[str(dev)] = net(x.to(dev), locs,
+                                 dict_to(dict_feat, dev)).cpu()
+        chosen[str(dev)] = dict(net.selected)
+    got = outs['cuda']
+    assert got.shape == (1, 3, 512, 512) and torch.isfinite(got).all()
+    assert chosen['cuda'] == chosen['cpu']
+    assert _rel_err(got, outs['cpu']) <= 3e-4
+    assert _rel_err(got, ref) <= 3e-4
+
+
+def test_cuda_prefetcher_on_side_stream(cuda, tmp_path):
+    """CUDAPrefetcher on the card: its batches are on the card, copied on
+    its own stream, and bitwise CPUPrefetcher's in order over an epoch and
+    a reset, from a pinned loader."""
+    from edvr_tpu_torch.data import (CPUPrefetcher, CUDAPrefetcher,
+                                     create_dataloader, create_dataset)
+    from edvr_tpu_torch.tools.data_layer import write_packed_reds
+    gt_pak, lq_pak = write_packed_reds(str(tmp_path), clips=('001', '002'),
+                                       frames=8, lq_hw=(24, 32))
+    opt = dict(name='REDS', type='REDSPackedDataset', phase='train', scale=4,
+               dataroot_gt=gt_pak, dataroot_lq=lq_pak, val_partition='REDS4',
+               num_frame=5, gt_size=32, interval_list=[1],
+               random_reverse=False, use_flip=True, use_rot=True,
+               num_worker_per_gpu=0, batch_size_per_gpu=3,
+               dataset_enlarge_ratio=1)
+    runs = []
+    for pinned in (False, True):
+        dataset = create_dataset(dict(opt, seed=2))
+        loader = create_dataloader(dataset, opt, seed=2, pin_memory=pinned)
+        pre = (CUDAPrefetcher(loader, cuda) if pinned
+               else CPUPrefetcher(loader))
+        assert not pinned or pre.stream != torch.cuda.current_stream()
+        batches = []
+        for _ in range(2):
+            pre.reset()
+            batch = pre.next()
+            while batch is not None:
+                assert batch['lq'].is_cuda == pinned
+                batches.append({k: v.cpu() if torch.is_tensor(v) else v
+                                for k, v in batch.items()})
+                batch = pre.next()
+        runs.append(batches)
+    assert len(runs[0]) == len(runs[1]) == 2 * (16 // 3)
+    for a, b in zip(*runs):
+        assert a['key'] == b['key']
+        assert torch.equal(a['lq'], b['lq']) and torch.equal(a['gt'],
+                                                             b['gt'])

@@ -88,8 +88,10 @@ def test_reds_items_match_jax(reds_root, kw):
 
 
 def test_reds_refuses_what_is_not_ported(reds_root):
-    with pytest.raises(NotImplementedError, match='flows'):
-        REDSDataset(_reds_opt(reds_root, dataroot_flow='x'))
+    # optical flows are ported (tests/test_torch_data_layer.py): a flow
+    # root is taken, and an item without its flow files fails to read them
+    with pytest.raises(FileNotFoundError, match='_p2.png'):
+        REDSDataset(_reds_opt(reds_root, dataroot_flow='x'))[0]
     with pytest.raises(NotImplementedError, match='lmdb'):
         REDSDataset(_reds_opt(reds_root, io_backend=dict(type='lmdb')))
     with pytest.raises(ValueError, match='partition'):

@@ -184,8 +184,8 @@ def test_train_cli_edvr_l_shaped_with_remat(tmp_path, monkeypatch):
 
 def test_train_cudnn_choice_by_network(monkeypatch):
     """The training CLI takes the test CLI's cuDNN choice for EDVR-L (128
-    features) and PyTorch's default for EDVR-M and other networks; values
-    already in the environment are kept."""
+    features) in fp32 and PyTorch's default for EDVR-L in bf16, EDVR-M and
+    other networks; values already in the environment are kept."""
     for key in INFERENCE_CUDNN_ENV:
         # set, then deleted: monkeypatch restores the key's state (unset or
         # its value) after the test, also for what the policy writes
@@ -203,3 +203,18 @@ def test_train_cudnn_choice_by_network(monkeypatch):
         {'network_g': edvr_l}) == INFERENCE_CUDNN_ENV
     assert os.environ['TORCH_CUDNN_V8_API_DISABLED'] == '1'
     assert os.environ['CUDNN_CONV_WSCAP_DBG'] == '512'
+    # the run's precision: EDVR-L capped in fp32 only (train.mixed_precision
+    # unset or null), the default in bf16; EDVR-M's default either way
+    assert train.train_cudnn_env(edvr_l, None) == INFERENCE_CUDNN_ENV
+    assert train.train_cudnn_env(edvr_l, 'bf16') == {}
+    assert train.train_cudnn_env(edvr, 'bf16') == {}
+    assert train.train_cudnn_env(edvr, None) == {}
+    for key in INFERENCE_CUDNN_ENV:
+        monkeypatch.delenv(key)
+    assert train.use_train_cudnn_policy(
+        {'network_g': edvr_l, 'train': {'mixed_precision': 'bf16'}}) == {}
+    assert not any(k in os.environ for k in INFERENCE_CUDNN_ENV)
+    assert train.use_train_cudnn_policy(
+        {'network_g': edvr_l, 'train': {'mixed_precision': None}}
+    ) == INFERENCE_CUDNN_ENV
+    assert os.environ['TORCH_CUDNN_V8_API_DISABLED'] == '1'

@@ -193,7 +193,7 @@ PyTorch's default cuDNN choice, the training CLI's for these networks:
 29. image_sr_test, in a child process (``chip_smoke.py --image-sr OUT``)
     under the test CLI's cuDNN policy: the MSRResNet x4, EDSR-L x4, RCAN
     x2 and RRDBNet x4 test YAMLs through ``create_dataset`` /
-    ``create_model`` / ``validation`` on three seeded DIV2K-validation-sized
+    ``create_model`` / ``validation`` on two seeded DIV2K-validation-sized
     PNG pairs each (HR 2040x1356), PSNR and SSIM, ms per image through the
     CLI's functions and for the network alone, peak memory, and one
     64x64 LQ crop against the plain CPU path (IMAGE_SR_TOL of max|out|);
@@ -275,7 +275,45 @@ Then, in this process under PyTorch's default cuDNN choice:
     the shipped crop (GT 256, 5 frames, batch 4), with the shipped
     ``num_worker_per_gpu`` and with 0: after the batches the workers make
     ahead are taken, the median of ``tools/data_layer.py``'s WINDOWS
-    windows of WINDOW_S seconds each, and their spread;
+    windows of LOADER_WINDOW_S seconds each (the tool's own are 3 s), and
+    their spread;
+Then the distributed, logging, ESRGAN and learning-invariant slice
+(``parallel_phases``), before DFDNet's:
+
+41. dist_train: ``options/train/EDVR/train_EDVR_M_x4_SR_REDS.yml`` (bf16,
+    as shipped) from the golden weights on the seeded packed REDS, cut to
+    ``tools/dist_train.py``'s STEPS steps (its cuts printed), through
+    ``python -m edvr_tpu_torch.train`` three times, each a process: twice
+    with ``--launcher none`` and once with ``--launcher pytorch`` at world
+    size 1 (NCCL; ``RANK=0 WORLD_SIZE=1 LOCAL_RANK=0``, a free
+    ``MASTER_PORT``). The pytorch run's final parameters lie within twice
+    the two none runs' gap of the first (B.2's dx is summed by atomics);
+    from a ``logger.profile`` window of 3 steps, the all-reduces a step
+    (the NCCL host ops and kernels, count and ms; none in the none run's
+    window) and the DCN kernels' launches a step (non-zero); ms per step of
+    each run and the pytorch run's extra;
+42. tb_profile: the second none run's ``use_tb_logger`` and profile
+    window: its Chrome trace names ``dcn_fwd`` and ``dcn_bwd`` kernels,
+    and it wrote an event file or warned that TensorBoard is missing
+    (printed which);
+43. dist_val: the shipped EDVR-M test YAML per window and in clip mode on
+    seeded folders (DIST_VAL_FOLDERS x DIST_VAL_FRAMES frames of 180x320)
+    from the golden weights, through ``python -m edvr_tpu_torch.test``'s
+    ``main`` in a child process (``chip_smoke.py --dist-val``) with
+    ``--launcher none`` and with ``--launcher pytorch`` at world size 1:
+    the metric tables equal;
+44. esrgan_inference: ``python -m edvr_tpu_torch.tools.inference_esrgan``
+    (RRDBNet at 64 features, 23 blocks, grow 32, seeded weights) over
+    ESRGAN_IMAGES seeded 128x128 PNGs: the written PNGs, ms per image
+    through the tool's ``restore`` and the network's by CUDA events, each
+    image against the CPU path within one uint8 level, and the first
+    image's output before rounding within IMAGE_SR_TOL of max|out| (the
+    seeded network saturates most of its output);
+45. learning_invariant: ``tools/train_invariant.py`` in bf16 (``--mp``,
+    the shipped YAMLs' precision) at seed INVARIANT_SEED, 900 iterations:
+    the fixed batch's PSNR curve, both gates (+0.4 dB in all, +0.1 after
+    the warm-up), ms per iteration and the DCN launches of the run.
+
 39. dfdnet_golden: DFDNet at full width from the golden
     (tests/data/golden/dfdnet_full.npz: BasicSR's state dict, its
     spectral norms folded, loaded strictly; its part dictionary, 512 px
@@ -578,9 +616,19 @@ FACE_UPSCALE = 2
 # the data layer (data_train, loader_throughput): warm and timed steps
 # with each prefetcher (the warm ones take the loader's pinned buffers,
 # whose allocation synchronises with the card); each loader is timed over
-# tools/data_layer.py's WINDOWS windows of WINDOW_S seconds
+# tools/data_layer.py's WINDOWS windows of LOADER_WINDOW_S seconds (cut
+# from the tool's 3 s to keep the script inside its time)
 DATA_WARMUP = 3
 DATA_STEPS = 5
+LOADER_WINDOW_S = 1.0
+# the parallel, logging, ESRGAN and learning-invariant slice (41-45)
+DIST_VAL_FOLDERS = ('000', '011')
+DIST_VAL_FRAMES = 6                 # frames of each 180x320 LQ folder
+ESRGAN_IMAGES = 3
+ESRGAN_HW = (128, 128)              # LQ of each synthetic image
+ESRGAN_CALLS = 5                    # timed network calls per image
+INVARIANT_ITERS = 900
+INVARIANT_SEED = 10
 L_CUTS = ['pretrain: the published EDVR-L checkpoint (not in the repo) -> '
           'seeded weights (torch seed 0, BasicSR init) with each DCN pack\'s '
           f'offset rows drawn and scaled to offsets of up to {OFFSET_PX} px, '
@@ -2598,6 +2646,7 @@ def main():
     video_families_phases()
     taps = taps_phases(smi)
     data_launches = data_phases(smi, state)
+    slice_launches = parallel_phases(smi, state)
     dfdnet_phases(smi)
 
     l1 = results['L1']
@@ -2826,6 +2875,14 @@ def main():
                 'ms', 'plain_ms', 'bound_ms', 'bound_ms_fp32_pipe')})
     for entry in (kernel_fwd_bf16, kernel_bwd_bf16):
         entry['launches_data_train'] = data_launches[entry['name']]
+    # the learning invariant's run (its evaluations take the fp32 forward)
+    # and the launches a step in dist_train's profiled window
+    for entry in (kernel, kernel_fwd_bf16, kernel_bwd_bf16):
+        entry['launches_learning_invariant'] = slice_launches[
+            'learning_invariant'][entry['name']]
+    for entry in (kernel_fwd_bf16, kernel_bwd_bf16):
+        entry['launches_per_step_dist_train'] = slice_launches[
+            'dist_train'][entry['name']]
     # the ablation variants: their main path is the timing tool's run
     kernels_ablate = [
         {'name': f'dcn_fwd_ablate_{mode}_{dname}', 'route': 'cuda',
@@ -3885,12 +3942,252 @@ def data_phases(smi, golden_state):
                        cuts=cuts, runs=runs, batches_bitwise_equal=True,
                        card=smi)
     with Phase('loader_throughput') as ph, tempfile.TemporaryDirectory() as t:
-        ph.info.update(**dl.throughput(dl.write_reds_clip(t, seed=SEED)),
+        ph.info.update(**dl.throughput(dl.write_reds_clip(t, seed=SEED),
+                                       seconds=LOADER_WINDOW_S), card=smi)
+    return launches
+
+
+def dist_val_tree(root, golden_pth, gen):
+    """Seeded REDS4-layout folders (DIST_VAL_FOLDERS, DIST_VAL_FRAMES
+    frames of 180x320 LQ and their 720x1280 GT) under ``root`` and the
+    shipped EDVR-M test YAML over them from the golden weights, per window
+    and in clip mode. Returns (the two YAML paths, the cuts)."""
+    import yaml
+    h, w = LEVELS['L1']
+    for folder in DIST_VAL_FOLDERS:
+        lq, gt = seeded_clip(DIST_VAL_FRAMES, h, w, gen)
+        for i in range(DIST_VAL_FRAMES):
+            write_png(osp.join(root, 'lq', folder, f'{i:08d}.png'), lq[i])
+            write_png(osp.join(root, 'gt', folder, f'{i:08d}.png'), gt[i])
+    with open(osp.join(ROOT, 'options', 'test', 'EDVR',
+                       'test_EDVR_M_x4_SR_REDS.yml')) as f:
+        shipped = yaml.safe_load(f)
+    ymls = []
+    for mode, clip in (('window', False), ('clip', True)):
+        opt = copy.deepcopy(shipped)
+        opt['name'] = f'dist_val_{mode}'
+        opt['datasets']['test_1'].update(
+            dataroot_gt=osp.join(root, 'gt'), dataroot_lq=osp.join(root, 'lq'),
+            meta_info_file=None, cache_data=clip)
+        opt['path']['pretrain_network_g'] = golden_pth
+        opt['val'].update(save_img=False, clip_mode=clip)
+        ymls.append(osp.join(root, f'{mode}.yml'))
+        with open(ymls[-1], 'w') as f:
+            yaml.safe_dump(opt, f, sort_keys=False)
+    cuts = ['REDS4 (4 x 100 frames) -> seeded folders '
+            f'{", ".join(DIST_VAL_FOLDERS)} of {DIST_VAL_FRAMES} frames',
+            'pretrain_network_g -> the golden EDVR-M weights',
+            'val.save_img true -> false; val.clip_mode true (clip) and '
+            'false, cache_data false (window)']
+    return ymls, cuts
+
+
+def dist_val_main(out_path, launcher, *ymls):
+    """``python -m edvr_tpu_torch.test``'s ``main`` on each YAML with
+    ``--launcher launcher`` (the rank's variables in this process's
+    environment); the metric tables written to ``out_path``."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false; this run '
+              'needs a CUDA card', file=sys.stderr)
+        return 1
+    from edvr_tpu_torch import test
+    tables = {}
+    for yml in ymls:
+        model = test.main(['-opt', yml, '--launcher', launcher])
+        tables[osp.basename(yml)] = {
+            folder: table.tolist()
+            for folder, table in model.metric_results.items()}
+    with open(out_path, 'w') as f:
+        json.dump(tables, f)
+    return 0
+
+
+def parallel_phases(smi, golden_state):
+    """dist_train, tb_profile, dist_val, esrgan_inference and
+    learning_invariant. Returns the DCN kernels' launches: a step in
+    dist_train's profiled window, and learning_invariant's run."""
+    from edvr_tpu_torch import native
+    from edvr_tpu_torch.tools import dist_train as dt
+    from edvr_tpu_torch.tools import inference_esrgan as esr
+    from edvr_tpu_torch.tools import train_invariant as ti
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        golden_pth = osp.join(tmp, 'edvr_m_golden.pth')
+        torch.save({'params': golden_state}, golden_pth)
+        with Phase('dist_train') as ph:
+            r = dt.run_all(tmp, golden_pth)
+            runs = r['runs']
+            window = runs['pytorch']['window']
+            if not r['gap_pytorch'] <= 2 * r['gap_none']:
+                raise AssertionError(
+                    f"dist_train: --launcher pytorch's parameters are "
+                    f"{r['gap_pytorch']} from the first none run's, more "
+                    f"than twice the none runs' gap {r['gap_none']}")
+            nccl = {k: v for k, v in window.items() if 'nccl' in k.lower()}
+            if not nccl or any('nccl' in k.lower()
+                               for k in runs['none_b']['window']):
+                raise AssertionError(f'dist_train: NCCL ops of the pytorch '
+                                     f'run {nccl}, of the none run '
+                                     f"{runs['none_b']['window']}")
+            per_step = {name: window.get(f'{name}_kernel', [0, 0])[0]
+                        for name in ('dcn_fwd', 'dcn_bwd')}
+            if not all(per_step.values()):
+                raise AssertionError(f'dist_train: DCN launches a step '
+                                     f'{per_step}')
+            # the shipped YAML trains in bf16
+            launches['dist_train'] = {'dcn_fwd_bf16': per_step['dcn_fwd'],
+                                      'dcn_bwd_bf16': per_step['dcn_bwd'],
+                                      'dcn_fwd': 0, 'dcn_bwd': 0}
+            ph.info.update(
+                yml=osp.relpath(dt.EDVR_M_YML, ROOT), cuts=r['cuts'],
+                gap_none=r['gap_none'], gap_pytorch=r['gap_pytorch'],
+                ms_per_step={k: v['ms_per_step_median']
+                             for k, v in runs.items()},
+                extra_ms_per_step=r['extra_ms_per_step'],
+                window_iters=list(dt.PROFILE), collectives_per_step={
+                    k: v for k, v in window.items()
+                    if not k.startswith('dcn')},
+                dcn_launches_per_step=per_step, card=smi)
+        with Phase('tb_profile') as ph:
+            run = runs['none_b']
+            per_step = {name: run['window'].get(f'{name}_kernel', [0, 0])[0]
+                        for name in ('dcn_fwd', 'dcn_bwd')}
+            if not all(per_step.values()):
+                raise AssertionError(f'tb_profile: the trace names DCN '
+                                     f'kernels {per_step} a step')
+            if not (run['tb_events'] or run['tb_missing_warning']):
+                raise AssertionError('tb_profile: no event file and no '
+                                     'missing-TensorBoard warning')
+            ph.info.update(
+                trace=osp.basename(run['trace']),
+                trace_bytes=osp.getsize(run['trace']),
+                dcn_kernels_per_step=per_step,
+                tensorboard=('event file' if run['tb_events'] else
+                             'missing-package warning'),
+                event_files=run['tb_events'])
+
+    with Phase('dist_val') as ph, tempfile.TemporaryDirectory() as tmp:
+        golden_pth = osp.join(tmp, 'edvr_m_golden.pth')
+        torch.save({'params': golden_state}, golden_pth)
+        ymls, cuts = dist_val_tree(tmp, golden_pth,
+                                   torch.Generator().manual_seed(SEED + 41))
+        tables = {}
+        for launcher in ('none', 'pytorch'):
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK',
+                                'MASTER_ADDR', 'MASTER_PORT')}
+            if launcher == 'pytorch':
+                env.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                           MASTER_ADDR='127.0.0.1',
+                           MASTER_PORT=str(dt.free_port()))
+            out_path = osp.join(tmp, f'tables_{launcher}.json')
+            child = subprocess.run(
+                [sys.executable, osp.abspath(__file__), '--dist-val',
+                 out_path, launcher, *ymls], cwd=tmp, env=env, check=False)
+            if child.returncode:
+                raise AssertionError(f'dist_val --launcher {launcher} failed '
+                                     f'(exit {child.returncode})')
+            with open(out_path) as f:
+                tables[launcher] = json.load(f)
+        for mode, table in tables['none'].items():
+            flat = np.array([v for t in table.values() for v in t])
+            if not (flat.shape == (len(DIST_VAL_FOLDERS) * DIST_VAL_FRAMES,
+                                   1) and np.isfinite(flat).all()):
+                raise AssertionError(f'dist_val {mode}: table {table}')
+        if tables['pytorch'] != tables['none']:
+            raise AssertionError(f'dist_val: --launcher pytorch tables '
+                                 f"{tables['pytorch']} != none's "
+                                 f"{tables['none']}")
+        ph.info.update(cuts=cuts, tables_equal=True, psnr={
+            mode: {f: float(np.mean(t)) for f, t in table.items()}
+            for mode, table in tables['none'].items()}, card=smi)
+
+    with Phase('esrgan_inference') as ph, \
+            tempfile.TemporaryDirectory() as tmp:
+        from edvr_tpu_torch.archs.rrdbnet_arch import RRDBNet
+        import cv2
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 42)
+            net = RRDBNet()
+        pth = osp.join(tmp, 'esrgan_seeded.pth')
+        torch.save({'params': net.state_dict()}, pth)
+        gen = torch.Generator().manual_seed(SEED + 42)
+        for i in range(ESRGAN_IMAGES):
+            lq, _ = seeded_clip(1, *ESRGAN_HW, gen)
+            write_png(osp.join(tmp, 'in', f'img{i}.png'), lq[0])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        paths = esr.main(['--model_path', pth, '--input',
+                          osp.join(tmp, 'in'), '--output',
+                          osp.join(tmp, 'out')])
+        cli_s = time.perf_counter() - t0
+        card, cpu = esr.build_rrdbnet(pth), esr.build_rrdbnet(pth, 'cpu')
+        errs, ms, net_ms, unsaturated = [], [], [], []
+        for i, path in enumerate(paths):
+            img = cv2.imread(osp.join(tmp, 'in', f'img{i}.png')).astype(
+                np.float32) / 255.
+            written = cv2.imread(path)
+            calls = []
+            for _ in range(ESRGAN_CALLS):
+                t0 = time.perf_counter()
+                out = esr.restore(card, img)  # ends in a copy to the host
+                calls.append((time.perf_counter() - t0) * 1e3)
+            x = torch.from_numpy(np.ascontiguousarray(
+                img[:, :, ::-1].transpose(2, 0, 1)))[None].cuda()
+            with torch.no_grad():
+                net_ms.append(cuda_ms(lambda: card(x), ESRGAN_CALLS))
+            want = esr.restore(cpu, img)
+            if not (np.array_equal(out, written)
+                    and out.shape == (4 * ESRGAN_HW[0], 4 * ESRGAN_HW[1],
+                                      3)):
+                raise AssertionError(f'esrgan_inference {path}: shape '
+                                     f'{out.shape} or not the written PNG')
+            errs.append(int(np.abs(out.astype(int) - want).max()))
+            ms.append(float(np.median(calls)))
+            unsaturated.append(float(((out > 0) & (out < 255)).mean()))
+            if i == 0:  # the network's output before the clip and rounding
+                with torch.no_grad():
+                    on_card = card(x).cpu()
+                    on_cpu = cpu(x.cpu())
+                gap = rel_err(on_card, on_cpu)
+        if max(errs) > 1 or not gap <= IMAGE_SR_TOL:
+            raise AssertionError(f'esrgan_inference: card vs CPU uint8 '
+                                 f'levels {errs} > 1, or the first '
+                                 f"image's output {gap} of max|out| > "
+                                 f'{IMAGE_SR_TOL}')
+        ph.info.update(images=len(paths), lq_hw=list(ESRGAN_HW),
+                       weights='seeded RRDBNet(64, 23, 32) (no published '
+                       '.pth in the repo)', cli_s=cli_s,
+                       ms_per_image=ms, network_ms_per_image=net_ms,
+                       max_level_vs_cpu=errs, unsaturated_share=unsaturated,
+                       output_vs_cpu=gap, tol=IMAGE_SR_TOL,
+                       peak_bytes=torch.cuda.max_memory_allocated(),
                        card=smi)
+        del card, cpu
+
+    with Phase('learning_invariant') as ph:
+        native.LAUNCHES.update({k: 0 for k in native.LAUNCHES})
+        r = ti.run(INVARIANT_ITERS, INVARIANT_SEED, mp=True, device='cuda',
+                   log=lambda msg: print(msg, flush=True))
+        launches['learning_invariant'] = dict(native.LAUNCHES)
+        if not (launches['learning_invariant']['dcn_fwd_bf16']
+                and launches['learning_invariant']['dcn_bwd_bf16']):
+            raise AssertionError(f'learning_invariant: launches '
+                                 f"{launches['learning_invariant']}")
+        if not (r['total_ok'] and r['postwarm_ok']):
+            raise AssertionError(
+                f"learning_invariant (bf16, seed {INVARIANT_SEED}): total "
+                f"{r['total_gain_db']:+.3f} dB (gate +{ti.GATE_TOTAL_DB}), "
+                f"after the warm-up {r['postwarm_gain_db']:+.3f} dB (gate "
+                f"+{ti.GATE_POSTWARM_DB}); curve {r['curve']}")
+        ph.info.update(**r, launches={k: v for k, v in launches[
+            'learning_invariant'].items() if v}, card=smi)
     return launches
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dist-val']:
+        sys.exit(dist_val_main(*sys.argv[2:]))
     if sys.argv[1:2] == ['--edvr-l']:
         sys.exit(edvr_l_main(sys.argv[2]))
     if sys.argv[1:2] == ['--edvr-l-train']:

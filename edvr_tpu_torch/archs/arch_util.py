@@ -15,6 +15,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from edvr_tpu_torch.ops.dcn import modulated_deform_conv
+from edvr_tpu_torch.parallel.data_parallel import all_reduce_sum, syncs_batch
 from edvr_tpu_torch.utils.logger import get_root_logger
 
 
@@ -62,6 +63,14 @@ class FlaxBatchNorm:
     (torch's layers use the unbiased one): ``running = (1 - momentum)
     running + momentum batch``, so flax's momentum m is ``1 - m`` here.
     ``update_stats = False`` normalises by the batch without moving them.
+
+    In a process group of more than one rank the batch is the global one,
+    as the JAX step sees the whole sharded batch: the per-channel sum and
+    then the sum of squared deviations are summed over the ranks
+    (``parallel.all_reduce_sum``, whose backward sums the gradients over
+    the ranks again, as ``nn.SyncBatchNorm`` does, under gloo too), so the
+    output, the gradients and the running statistics are those of one
+    process on the global batch, on every rank.
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1):
@@ -72,18 +81,36 @@ class FlaxBatchNorm:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                           self.eps)
+        dims = (0, *range(2, x.dim()))
+        if syncs_batch():
+            out, mean, var = self._global_batch_norm(x, dims)
+        else:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True,
+                               0.0, self.eps)
+            mean = var = None
         if self.update_stats:
             with torch.no_grad():
                 dt = self.running_mean.dtype
-                dims = (0, *range(2, x.dim()))
-                var, mean = torch.var_mean(x.detach().to(dt), dim=dims,
-                                           correction=0)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+                if mean is None:
+                    var, mean = torch.var_mean(x.detach().to(dt), dim=dims,
+                                               correction=0)
+                self.running_mean.lerp_(mean.detach().to(dt), self.momentum)
+                self.running_var.lerp_(var.detach().to(dt), self.momentum)
                 self.num_batches_tracked.add_(1)
         return out
+
+    def _global_batch_norm(self, x, dims):
+        """Normalise by the global batch's mean and biased variance (two
+        passes, each summed over the ranks); returns (out, mean, var)."""
+        shape = (1, -1, *([1] * (x.dim() - 2)))
+        count = x.numel() // x.shape[1] * torch.distributed.get_world_size()
+        mean = all_reduce_sum(x.sum(dims)) / count
+        centred = x - mean.view(shape)
+        var = all_reduce_sum(centred.square().sum(dims)) / count
+        out = centred * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            out = out * self.weight.view(shape) + self.bias.view(shape)
+        return out, mean, var
 
 
 class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):

@@ -1,7 +1,8 @@
 """Base engine (reference: basicsr/models/base_model.py), the counterpart of
 ``edvr_tpu/models/base_model.py``: device placement, network loading and
 saving, per-iteration learning rates, training-state save and resume, and
-the loss log. One process; distributed training is not ported.
+the loss log. In a multi-process run the networks start as rank 0's, rank
+0 writes the checkpoints, and the logged losses are the ranks' mean.
 """
 
 from __future__ import annotations
@@ -10,9 +11,13 @@ import os
 import os.path as osp
 
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from edvr_tpu_torch.convert import load_state_dict_file
 from edvr_tpu_torch.models.lr_scheduler import build_schedule
+from edvr_tpu_torch.parallel import master_only, replicate_tree
+from edvr_tpu_torch.parallel.dist_util import collective_device, is_dist
 from edvr_tpu_torch.utils import get_root_logger
 
 
@@ -36,6 +41,12 @@ class BaseModel:
         self.optimizers = {}
         self.schedulers = {}
         self.log_dict = {}
+
+    def replicate_networks(self):
+        """Give every rank rank 0's ``net_*`` networks (parameters and
+        buffers), once they are built and loaded."""
+        replicate_tree(*(v for k, v in vars(self).items()
+                         if k.startswith('net_') and isinstance(v, nn.Module)))
 
     def validation(self, dataloader, current_iter, tb_logger,
                    save_img=False):
@@ -82,9 +93,10 @@ class BaseModel:
     # ------------------------------------------------------------------ #
     # checkpoints (reference: base_model.py:170-304)
     # ------------------------------------------------------------------ #
+    @master_only
     def save_network(self, net, net_label, current_iter, param_key='params'):
         """Write ``<models>/<label>_<iter>.pth`` holding the state dict
-        under ``param_key`` (reference: base_model.py:170-201)."""
+        under ``param_key``, on rank 0 (reference: base_model.py:170-201)."""
         if current_iter == -1:
             current_iter = 'latest'
         save_path = osp.join(self.opt['path']['models'],
@@ -93,9 +105,11 @@ class BaseModel:
         state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
         torch.save({param_key: state}, save_path)
 
+    @master_only
     def save_training_state(self, epoch, current_iter):
         """Write ``<training_states>/<iter>.state``: epoch, iteration and
-        every optimizer's state (reference: base_model.py:264-287)."""
+        every optimizer's state, on rank 0 (reference:
+        base_model.py:264-287)."""
         if current_iter == -1:
             return
         state = {'epoch': epoch, 'iter': current_iter,
@@ -117,8 +131,17 @@ class BaseModel:
     # logging
     # ------------------------------------------------------------------ #
     def reduce_loss_dict(self, loss_dict):
-        """Loss tensors -> floats (one process: nothing to average)."""
-        return {k: float(v) for k, v in loss_dict.items()}
+        """Loss tensors -> floats, each the mean over the ranks in a
+        multi-process run (reference: base_model.py:306-332), so that the
+        log reads the global batch's loss."""
+        if not is_dist():
+            return {k: float(v) for k, v in loss_dict.items()}
+        values = torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                              for v in loss_dict.values()])
+        values = values.to(collective_device())
+        dist.all_reduce(values)
+        values = (values / dist.get_world_size()).tolist()
+        return dict(zip(loss_dict, values))
 
     def get_current_log(self):
         return self.reduce_loss_dict(self.log_dict)

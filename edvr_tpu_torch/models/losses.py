@@ -14,6 +14,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from edvr_tpu_torch.parallel.data_parallel import global_mean
 from edvr_tpu_torch.utils.registry import LOSS_REGISTRY
 
 _reduction_modes = ['none', 'mean', 'sum']
@@ -236,15 +237,16 @@ def g_path_regularize(fake_img, latents, noise, mean_path_length,
 
     Returns:
         (penalty, the batch's mean path length, the running mean moved by
-        ``decay`` toward it, detached).
+        ``decay`` toward it, detached). In a multi-process run the batch's
+        mean is the global batch's (``parallel.data_parallel.global_mean``).
     """
     grad, = torch.autograd.grad(outputs=(fake_img * noise).sum(),
                                 inputs=latents, create_graph=True)
     path_lengths = torch.sqrt(grad.pow(2).sum(2).mean(1))
-    path_mean = mean_path_length + decay * (
-        path_lengths.mean() - mean_path_length)
+    batch_mean = global_mean(path_lengths)
+    path_mean = mean_path_length + decay * (batch_mean - mean_path_length)
     path_penalty = (path_lengths - path_mean).pow(2).mean()
-    return path_penalty, path_lengths.detach().mean(), path_mean.detach()
+    return path_penalty, batch_mean.detach(), path_mean.detach()
 
 
 def gradient_penalty_loss(discriminator, real_data, fake_data, alpha,

@@ -18,6 +18,13 @@ the cast into the f32 parameters) on a bf16 input; the output cast to f32
 and the loss taken in f32; f32 master parameters, ``.grad`` and Adam
 state, with no loss scaling (bf16 keeps f32's exponent range). Validation
 runs ``net_g`` itself, in f32.
+
+In a multi-process run (``--launcher pytorch``) every rank starts from
+rank 0's networks (``parallel.replicate_tree``), and a step's gradients
+are averaged over the ranks after ``backward``, before the frozen ones are
+masked and Adam reads them (``parallel.average_gradients``), as the JAX
+step's gradient over the sharded global batch. Image-SR validation runs
+whole on every rank, as the JAX engine's does; rank 0 logs it.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from edvr_tpu_torch.archs import define_network
 from edvr_tpu_torch.metrics import calculate_metric
 from edvr_tpu_torch.models.base_model import BaseModel
 from edvr_tpu_torch.models.losses import build_loss
+from edvr_tpu_torch.parallel import average_gradients
 from edvr_tpu_torch.utils import get_root_logger, imwrite, tensor2img
 from edvr_tpu_torch.utils.registry import MODEL_REGISTRY
 
@@ -56,6 +64,7 @@ class SRModel(BaseModel):
             self.init_training_settings()
         else:
             self.net_g.eval()
+        self.replicate_networks()
 
     def build_network(self, suffix, seed):
         """``network_<suffix>`` on the engine's device, its parameters
@@ -156,9 +165,11 @@ class SRModel(BaseModel):
         self.step_optimizers(current_iter)
 
     def step_optimizers(self, current_iter):
-        """Apply the gradients held in ``.grad`` at ``current_iter``: the
-        scheduled lr, frozen gradients multiplied by 0, one Adam step."""
+        """Apply the gradients held in ``.grad`` at ``current_iter``: their
+        mean over the ranks, the scheduled lr, frozen gradients multiplied
+        by 0, one Adam step."""
         self.update_learning_rate(current_iter)
+        average_gradients(self.net_g.parameters())
         self._mask_gradients(current_iter)
         self.optimizer_g.step()
 
@@ -226,14 +237,20 @@ class SRModel(BaseModel):
         if metrics is not None:
             for name in self.metric_results:
                 self.metric_results[name] /= cnt
-            self._log_validation_metric_values(current_iter, dataset_name)
+            self._log_validation_metric_values(current_iter, dataset_name,
+                                               tb_logger)
 
-    def _log_validation_metric_values(self, current_iter, dataset_name):
+    def _log_validation_metric_values(self, current_iter, dataset_name,
+                                      tb_logger=None):
         # current_iter is an int while training, a label under the test CLI
         log_str = f'Validation {dataset_name} (iter {current_iter})\n'
         for metric, value in self.metric_results.items():
             log_str += f'\t # {metric}: {value:.4f}\n'
         get_root_logger().info(log_str)
+        if tb_logger is not None:
+            for metric, value in self.metric_results.items():
+                tb_logger.add_scalar(f'metrics/{metric}', value,
+                                     current_iter)
 
     def save(self, epoch, current_iter):
         self.save_network(self.net_g, 'net_g', current_iter)

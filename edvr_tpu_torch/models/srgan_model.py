@@ -23,6 +23,12 @@ with ``network_d.train: true``.
 Two ``torch.optim.Adam`` (``optim_g``, ``optim_d``; weight decay as the
 SR engine maps it) with a schedule each. ``train.mixed_precision`` is
 refused, as the JAX engine refuses it.
+
+In a multi-process run G's and D's gradients are each averaged over the
+ranks before their Adam step, and D's BatchNorm layers take their batch
+moments over the global batch (``arch_util.FlaxBatchNorm``), as the JAX
+step over the sharded batch does; their running statistics then agree on
+every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from edvr_tpu_torch.archs.discriminator_arch import frozen_running_stats
 from edvr_tpu_torch.models.losses import build_loss
 from edvr_tpu_torch.models.sr_model import SRModel
+from edvr_tpu_torch.parallel import average_gradients
 from edvr_tpu_torch.utils.registry import MODEL_REGISTRY
 
 
@@ -115,6 +122,7 @@ class SRGANModel(SRModel):
             losses['l_g_gan'] = self.g_gan_loss(d_fake, d_real)
         if do_g:
             sum(losses.values()).backward()
+            average_gradients(self.net_g.parameters())
             self.optimizer_g.step()
 
         # ---- discriminator ----
@@ -124,6 +132,7 @@ class SRGANModel(SRModel):
         d_fake = self.net_d(self.output.detach())
         l_d_real, l_d_fake = self.d_losses(d_real, d_fake)
         (l_d_real + l_d_fake).backward()
+        average_gradients(self.net_d.parameters())
         self.optimizer_d.step()
 
         losses.update(l_d_real=l_d_real, l_d_fake=l_d_fake,

@@ -23,6 +23,15 @@ counterpart of ``edvr_tpu/models/stylegan2_model.py``, whose step it keeps:
 Validation writes one grid of ``num_val_samples`` fixed samples from the
 EMA generator. ``net_g_<iter>.pth`` holds ``params`` and ``params_ema``.
 ``train.mixed_precision`` is refused, as the JAX engine refuses it.
+
+In a multi-process run every rank draws the global batch's codes and path
+noise from the same generator and takes its own rows
+(``parallel.shard_batch``), the injected noise comes from a generator
+seeded apart for each rank, every Adam step (D, R1, G, path length) reads
+gradients averaged over the ranks, and the path length's mean is the
+global batch's (``losses.g_path_regularize``). Rank 0 samples the
+validation grid, logs it to TensorBoard and writes the checkpoints
+(``edvr_tpu/models/stylegan2_model.py:321-345``).
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from edvr_tpu_torch.archs import define_network
 from edvr_tpu_torch.models.base_model import BaseModel
 from edvr_tpu_torch.models.losses import (build_loss, g_path_regularize,
                                           r1_penalty)
+from edvr_tpu_torch.parallel import (average_gradients, get_dist_info,
+                                     master_only, shard_batch)
 from edvr_tpu_torch.utils import get_root_logger, imwrite, tensor2img
 from edvr_tpu_torch.utils.registry import MODEL_REGISTRY
 
@@ -50,7 +61,10 @@ class StyleGAN2Model(BaseModel):
     def __init__(self, opt):
         super().__init__(opt)
         seed = opt.get('manual_seed') or 0
-        self.net_g = self.build_network('g', seed, noise_seed=seed + 11)
+        rank, self.world_size = get_dist_info()
+        # each rank draws its own samples' injected noise
+        self.net_g = self.build_network('g', seed,
+                                        noise_seed=seed + 11 + 1000 * rank)
         self.rng = np.random.RandomState(seed + 7)
         self.num_style_feat = opt['network_g']['num_style_feat']
         num_val_samples = (opt.get('val') or {}).get('num_val_samples', 16)
@@ -59,6 +73,7 @@ class StyleGAN2Model(BaseModel):
                 self.device)
         if self.is_train:
             self.init_training_settings()
+        self.replicate_networks()
 
     def build_network(self, suffix, seed, **extra):
         """``network_<suffix>`` on the engine's device, its parameters drawn
@@ -130,15 +145,18 @@ class StyleGAN2Model(BaseModel):
         self.real_img = data['gt'].to(self.device, torch.float32)
 
     def mixing_args(self, batch):
-        """Two code batches, whether to mix them and where (the JAX
-        engine's draws, in its order)."""
-        n1 = self.rng.randn(batch, self.num_style_feat).astype(np.float32)
-        n2 = self.rng.randn(batch, self.num_style_feat).astype(np.float32)
+        """Two code batches of ``batch`` rows, whether to mix them and where
+        (the JAX engine's draws, in its order, for the global batch of
+        ``batch`` x the world size; this rank's rows)."""
+        rows = batch * self.world_size
+        n1 = self.rng.randn(rows, self.num_style_feat).astype(np.float32)
+        n2 = self.rng.randn(rows, self.num_style_feat).astype(np.float32)
         mix = bool(self.rng.rand() < self.mixing_prob)
         num_latent = self.net_g.num_latent
         inject = self.rng.randint(1, num_latent - 1) if mix else num_latent
-        return (torch.from_numpy(n1).to(self.device),
-                torch.from_numpy(n2).to(self.device), mix, inject)
+        return (shard_batch(torch.from_numpy(n1)).to(self.device),
+                shard_batch(torch.from_numpy(n2)).to(self.device), mix,
+                inject)
 
     def g_forward(self, n1, n2, mix, inject, return_latents=False):
         """G's output on the codes, mixed at ``inject`` when ``mix``: the
@@ -196,10 +214,10 @@ class StyleGAN2Model(BaseModel):
             args = self.mixing_args(path_batch)
             size = self.opt['network_g']['out_size']
             # drawn NHWC as the JAX engine draws it, over sqrt(h * w)
-            noise = self.rng.randn(path_batch, size, size, 3).astype(
-                np.float32) / np.float32(size)
-            noise = torch.from_numpy(noise.transpose(0, 3, 1, 2).copy()).to(
-                self.device)
+            noise = self.rng.randn(path_batch * self.world_size, size, size,
+                                   3).astype(np.float32) / np.float32(size)
+            noise = shard_batch(torch.from_numpy(
+                noise.transpose(0, 3, 1, 2).copy())).to(self.device)
             self.optimizer_g.zero_grad(set_to_none=True)
             fake_img, latents = self.g_forward(*args, return_latents=True)
             l_path, path_length, self.mean_path_length = g_path_regularize(
@@ -215,14 +233,16 @@ class StyleGAN2Model(BaseModel):
 
     @staticmethod
     def step(optimizer):
-        """An Adam step of every parameter: one the loss does not reach
-        (R1 and the path length miss the last biases) steps with a zero
-        gradient, as in the JAX engine, so its moments decay and its step
-        count stays the optimizer's."""
-        for group in optimizer.param_groups:
-            for p in group['params']:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        """An Adam step of every parameter on its gradient averaged over
+        the ranks: one the loss does not reach (R1 and the path length miss
+        the last biases) steps with a zero gradient, as in the JAX engine,
+        so its moments decay and its step count stays the optimizer's."""
+        params = [p for group in optimizer.param_groups
+                  for p in group['params']]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        average_gradients(params)
         optimizer.step()
 
     @torch.no_grad()
@@ -240,13 +260,15 @@ class StyleGAN2Model(BaseModel):
 
     def dist_validation(self, dataloader, current_iter, tb_logger,
                         save_img):
-        self.nondist_validation(dataloader, current_iter, tb_logger,
-                                save_img)
+        """Rank 0's grid (``edvr_tpu/models/stylegan2_model.py:321-325``)."""
+        if get_dist_info()[0] == 0:
+            self.nondist_validation(dataloader, current_iter, tb_logger,
+                                    save_img)
 
     def nondist_validation(self, dataloader, current_iter, tb_logger,
                            save_img):
-        """One grid PNG of the fixed samples (reference:
-        stylegan2_model.py:313-335)."""
+        """One grid PNG of the fixed samples, and TensorBoard's
+        ``samples`` image (reference: stylegan2_model.py:313-335)."""
         assert dataloader is None, 'Validation dataloader should be None.'
         self.test()
         result = tensor2img(self.output, min_max=(-1, 1))
@@ -257,10 +279,16 @@ class StyleGAN2Model(BaseModel):
             save_img_path = osp.join(self.opt['path']['visualization'],
                                      'test', f'test_{self.opt["name"]}.png')
         imwrite(result, save_img_path)
+        if tb_logger is not None:
+            rgb = np.ascontiguousarray(result[..., ::-1] / 255.,
+                                       dtype=np.float32)
+            tb_logger.add_image('samples', rgb, global_step=current_iter,
+                                dataformats='HWC')
 
+    @master_only
     def save(self, epoch, current_iter):
         """``net_g_<iter>.pth`` with ``params`` and ``params_ema``, then
-        ``net_d`` and the training state."""
+        ``net_d`` and the training state, on rank 0."""
         label = 'latest' if current_iter == -1 else current_iter
         path = osp.join(self.opt['path']['models'], f'net_g_{label}.pth')
         os.makedirs(osp.dirname(path), exist_ok=True)

@@ -3,8 +3,10 @@ counterpart of ``edvr_tpu/models/video_base_model.py``: per-folder x
 per-frame metric tables, from the test CLI or from the training loop at
 ``val_freq``, filled by the reference's per-window protocol (one dataset
 item, one forward) or, with ``val.clip_mode``, by whole-clip EDVR
-evaluation. One process: the JAX package's rank striding runs as rank 0 of
-1. Training itself is the SR engine's."""
+evaluation. In a multi-process run each rank scores its share (windows by
+index, or folders in clip mode) and the tables are summed over the ranks
+(``parallel.process_allreduce_sum``), as the JAX package does; rank 0 logs
+them. Training itself is the SR engine's."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from edvr_tpu_torch.data.data_util import read_img_seq
 from edvr_tpu_torch.data.video_test_dataset import VideoTestDataset
 from edvr_tpu_torch.metrics import calculate_metric
 from edvr_tpu_torch.models.sr_model import SRModel
+from edvr_tpu_torch.parallel import get_dist_info, process_allreduce_sum
 from edvr_tpu_torch.utils import get_root_logger, imwrite, tensor2img
 from edvr_tpu_torch.utils.registry import MODEL_REGISTRY
 
@@ -61,21 +64,34 @@ class VideoBaseModel(SRModel):
             self.metric_results[folder][frame_idx, metric_idx] += (
                 calculate_metric(dict(img1=result_img, img2=gt_img), opt_))
 
+    def _finalize_validation(self, current_iter, dataset_name, tb_logger):
+        """Sum the tables over the ranks (each frame was scored by one) and
+        log them on rank 0 (reference: video_base_model.py:109-113;
+        ``edvr_tpu/models/video_base_model.py:80-87``)."""
+        for folder in self.metric_results:
+            self.metric_results[folder] = process_allreduce_sum(
+                self.metric_results[folder])
+        if get_dist_info()[0] == 0:
+            self._log_validation_metric_values(current_iter, dataset_name,
+                                               tb_logger)
+
     def nondist_validation(self, dataloader, current_iter, tb_logger,
                            save_img):
-        """One process: it delegates to ``dist_validation``, as the JAX
-        package's does (``edvr_tpu/models/video_base_model.py:216-220``)."""
+        """It delegates to ``dist_validation`` (rank 0 of 1 outside a
+        process group), as the JAX package's does
+        (``edvr_tpu/models/video_base_model.py:216-220``)."""
         self.dist_validation(dataloader, current_iter, tb_logger, save_img)
 
     def dist_validation(self, dataloader, current_iter, tb_logger,
                         save_img):
-        """The reference's per-window protocol as rank 0 of 1
+        """The reference's per-window protocol
         (``edvr_tpu/models/video_base_model.py:90-136``): each dataset item
         is one window through :meth:`test`, its output scored against its
-        GT frame. ``val.clip_mode`` with a VideoTestDataset and an EDVR
-        network takes whole-clip evaluation instead, with the same outputs;
-        with any other dataset or network it warns and falls back to the
-        per-window protocol, as the JAX package does."""
+        GT frame; rank r of w takes items r, r + w, ... ``val.clip_mode``
+        with a VideoTestDataset and an EDVR network takes whole-clip
+        evaluation instead, with the same outputs; with any other dataset or
+        network it warns and falls back to the per-window protocol, as the
+        JAX package does."""
         if save_img and self.is_train:
             raise NotImplementedError(
                 'saving image is not supported during training.')
@@ -91,8 +107,9 @@ class VideoBaseModel(SRModel):
                 'protocol.')
         dataset_name = dataset.opt['name']
         with_metrics = self._init_metric_tables(dataset)
+        rank, world_size = get_dist_info()
 
-        for idx in range(len(dataset)):
+        for idx in range(rank, len(dataset), world_size):
             val_data = dataset[idx]
             folder = val_data['folder']
             frame_idx = int(val_data['idx'].split('/')[0])
@@ -113,14 +130,15 @@ class VideoBaseModel(SRModel):
                 self._score_frame(result_img, gt_img, folder, frame_idx)
 
         if with_metrics:
-            self._log_validation_metric_values(current_iter, dataset_name)
+            self._finalize_validation(current_iter, dataset_name, tb_logger)
 
     def _clip_validation(self, dataset, current_iter, tb_logger, save_img):
         """Whole-clip EDVR evaluation in window mode (``val.clip_mode``),
         the counterpart of
         ``edvr_tpu/models/video_base_model.py::_clip_validation``. The
         output protocol (window index table, uint8 metric domain, save
-        paths) is the reference's per-window one."""
+        paths) is the reference's per-window one. Rank r of w takes
+        folders r, r + w, ..."""
         dataset_name = dataset.opt['name']
         with_metrics = self._init_metric_tables(dataset)
         win_batch = int(self.opt['val'].get('clip_win_batch', 1))
@@ -133,7 +151,8 @@ class VideoBaseModel(SRModel):
                                 dataset.data_info['folder']):
             lq_paths[folder].append(path)
 
-        for folder in dataset.imgs_lq:
+        rank, world_size = get_dist_info()
+        for folder in list(dataset.imgs_lq)[rank::world_size]:
             if dataset.cache_data:
                 clip = dataset.imgs_lq[folder]
                 gts = dataset.imgs_gt[folder]
@@ -154,11 +173,14 @@ class VideoBaseModel(SRModel):
                                       folder, i)
 
         if with_metrics:
-            self._log_validation_metric_values(current_iter, dataset_name)
+            self._finalize_validation(current_iter, dataset_name, tb_logger)
 
-    def _log_validation_metric_values(self, current_iter, dataset_name):
-        """Per-folder averaging and logging
-        (reference: video_base_model.py:128-172)."""
+    def _log_validation_metric_values(self, current_iter, dataset_name,
+                                      tb_logger=None):
+        """Per-folder averaging and logging, to TensorBoard as
+        ``metrics/<metric>`` and ``metrics/<metric>/<folder>`` too
+        (reference: video_base_model.py:128-172;
+        ``edvr_tpu/models/video_base_model.py:253-257``)."""
         folder_avg = {folder: arr.mean(axis=0)
                       for folder, arr in self.metric_results.items()}
         log_str = f'Validation {dataset_name} (iter {current_iter})\n'
@@ -169,4 +191,10 @@ class VideoBaseModel(SRModel):
             for folder, avg in folder_avg.items():
                 log_str += f'\t # {folder}: {float(avg[metric_idx]):.4f}'
             log_str += '\n'
+            if tb_logger is not None:
+                tb_logger.add_scalar(f'metrics/{metric}', total,
+                                     current_iter)
+                for folder, avg in folder_avg.items():
+                    tb_logger.add_scalar(f'metrics/{metric}/{folder}',
+                                         float(avg[metric_idx]), current_iter)
         get_root_logger().info(log_str)

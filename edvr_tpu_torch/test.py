@@ -1,11 +1,16 @@
-"""Testing CLI: ``python -m edvr_tpu_torch.test -opt <yml> [--device cpu]``
-(reference: basicsr/test.py), the counterpart of ``edvr_tpu/test.py``."""
+"""Testing CLI: ``python -m edvr_tpu_torch.test -opt <yml> [--device cpu]
+[--launcher none|pytorch]`` (reference: basicsr/test.py), the counterpart
+of ``edvr_tpu/test.py``. It shares the training CLI's ``parse_options``;
+with ``--launcher pytorch`` each rank scores its share of a video test set
+and rank 0 logs the tables (``models/video_base_model.py``)."""
 
 from __future__ import annotations
 
 import logging
 import os
 from os import path as osp
+
+import torch
 
 from edvr_tpu_torch.data import create_dataloader, create_dataset
 from edvr_tpu_torch.models import create_model
@@ -39,6 +44,8 @@ def main(args=None):
     opt = parse_options(is_train=False, args=args)
 
     make_exp_dirs(opt)
+    if opt['dist']:
+        torch.distributed.barrier()  # rank 0 has made the directories
     log_file = osp.join(opt['path']['log'],
                         f"test_{opt['name']}_{get_time_str()}.log")
     logger = get_root_logger(log_level=logging.INFO, log_file=log_file)

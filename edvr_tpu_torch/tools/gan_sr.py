@@ -36,7 +36,7 @@ TEST_YML = {**{k: v for k, (v, _) in IMAGE_SR.items()},
             WOGT: 'ESRGAN/test_ESRGAN_x4_woGT.yml'}
 # a DIV2K validation image's HR size; the LQ is this over the scale
 DIV2K_HR = (1356, 2040)
-IMAGES = 3
+IMAGES = 2
 # name: training YAML under options/train
 GAN_TRAIN = {
     'MSRGAN_x4': 'SRResNet_SRGAN/train_MSRGAN_x4.yml',

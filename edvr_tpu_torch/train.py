@@ -2,19 +2,28 @@
 ``edvr_tpu/train.py``::
 
     python -m edvr_tpu_torch.train -opt <yml> [--device cpu]
-        [--force_yml key:sub=value ...]
+        [--launcher none|pytorch] [--force_yml key:sub=value ...]
 
 One process on one device (``cuda`` unless ``--device`` says otherwise),
-TF32 off; the training step follows ``train.mixed_precision`` (null:
-fp32; bf16: the JAX engine's policy, ``models/sr_model.py``) and
-validation is fp32. The loop is the reference's: epochs over an enlarged
-sampler, message logging at ``print_freq``, checkpoints at
-``save_checkpoint_freq``, validation at ``val_freq``, resume from
-``path.resume_state``; batches come through the prefetcher that
-``prefetch_mode`` names (:func:`create_prefetcher`). ``parse_options`` is
-shared with the test CLI and turns TF32 off for both. Before its first
-convolution the run takes cuDNN's algorithm choice by the network it
-trains and its precision (:func:`use_train_cudnn_policy`).
+or with ``--launcher pytorch`` one process per rank, started with
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` (as ``torchrun`` sets them): NCCL on ``cuda``, gloo on
+``cpu``; each rank takes its share of the enlarged sampler and the
+gradients are averaged over the ranks (``edvr_tpu_torch/parallel``). TF32
+is off; the training step follows ``train.mixed_precision`` (null: fp32;
+bf16: the JAX engine's policy, ``models/sr_model.py``) and validation is
+fp32. The loop is the reference's: epochs over an enlarged sampler,
+message logging at ``print_freq`` (and to TensorBoard with
+``logger.use_tb_logger``), checkpoints at ``save_checkpoint_freq``,
+validation at ``val_freq``, resume from ``path.resume_state``; batches
+come through the prefetcher that ``prefetch_mode`` names
+(:func:`create_prefetcher`). ``logger.profile`` (``start_iter``,
+``end_iter``, ``logdir``, default ``<log>/profile``) traces the iterations
+from ``start_iter`` to ``end_iter`` with ``torch.profiler`` into a Chrome
+trace per rank (:class:`ProfileWindow`). ``parse_options`` is shared with
+the test CLI and turns TF32 off for both. Before its first convolution the
+run takes cuDNN's algorithm choice by the network it trains and its
+precision (:func:`use_train_cudnn_policy`).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import argparse
 import datetime
 import math
 import os
+import os.path as osp
 import random
 import time
 
@@ -33,6 +43,7 @@ from edvr_tpu_torch.data import (CPUPrefetcher, CUDAPrefetcher,
                                  create_dataset)
 from edvr_tpu_torch.models import create_model
 from edvr_tpu_torch.models.base_model import load_resume_state
+from edvr_tpu_torch.parallel import get_dist_info, init_dist
 from edvr_tpu_torch.utils import (MessageLogger, check_resume, init_loggers,
                                   make_exp_dirs, set_random_seed)
 from edvr_tpu_torch.utils.options import parse
@@ -43,9 +54,11 @@ def parse_options(is_train=True, args=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('-opt', type=str, required=True,
                         help='Path to option YAML file.')
-    parser.add_argument('--launcher', choices=['none'], default='none',
-                        help='job launcher (distributed training is not '
-                        'ported)')
+    parser.add_argument('--launcher', choices=['none', 'pytorch'],
+                        default='none',
+                        help="job launcher: 'pytorch' joins a process group "
+                        'from RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and '
+                        'MASTER_PORT (NCCL on cuda, gloo on cpu)')
     parser.add_argument('--force_yml', nargs='+', default=None,
                         help='Override yml options, e.g. '
                         'train:total_iter=100')
@@ -62,8 +75,10 @@ def parse_options(is_train=True, args=None):
         for k in parents:
             node = node[k]
         node[leaf] = yaml.safe_load(value)
-    opt['dist'] = False
-    opt['rank'], opt['world_size'] = 0, 1
+    opt['dist'] = args.launcher != 'none'
+    if opt['dist']:
+        init_dist(args.launcher, args.device)
+    opt['rank'], opt['world_size'] = get_dist_info()
     opt['device'] = args.device
     # fp32 on the card for both CLIs: no TF32 in cuDNN convolutions or
     # matmuls (cuDNN allows it by default), as the reference is compared
@@ -74,7 +89,7 @@ def parse_options(is_train=True, args=None):
     seed = opt.get('manual_seed')
     if seed is None:
         seed = opt['manual_seed'] = random.randint(1, 10000)
-    set_random_seed(seed)
+    set_random_seed(seed + opt['rank'])
     return opt
 
 
@@ -137,18 +152,19 @@ def create_train_val_dataloader(opt, logger):
     for phase, dataset_opt in opt['datasets'].items():
         if phase == 'train':
             ratio = dataset_opt.get('dataset_enlarge_ratio', 1)
-            train_set = create_dataset(dict(dataset_opt,
-                                            seed=opt['manual_seed']))
-            train_sampler = EnlargedSampler(train_set, 1, 0, ratio)
+            # each rank draws its own crops and augmentations
+            seed = opt['manual_seed'] + opt['rank']
+            train_set = create_dataset(dict(dataset_opt, seed=seed))
+            train_sampler = EnlargedSampler(train_set, opt['world_size'],
+                                            opt['rank'], ratio)
             train_loader = create_dataloader(
                 train_set, dataset_opt, num_gpu=opt['num_gpu'],
-                dist=opt['dist'], sampler=train_sampler,
-                seed=opt['manual_seed'],
+                dist=opt['dist'], sampler=train_sampler, seed=seed,
                 pin_memory=(dataset_opt.get('prefetch_mode') in PREFETCH_CUDA
                             and torch.device(opt.get('device') or 'cuda')
                             .type == 'cuda'))
-            # one process feeds all num_gpu devices
-            # (edvr_tpu/train.py:107-110)
+            # one process feeds all num_gpu devices, or each rank its own
+            # (edvr_tpu/train.py:104-107)
             num_iter_per_epoch = math.ceil(
                 len(train_set) * ratio /
                 (dataset_opt['batch_size_per_gpu'] * opt['world_size'] *
@@ -171,6 +187,47 @@ def create_train_val_dataloader(opt, logger):
     return train_loader, train_sampler, val_loader, total_epochs, total_iters
 
 
+class ProfileWindow:
+    """``logger.profile``'s trace: ``torch.profiler`` (CPU, and CUDA on a
+    card) from the start of iteration ``start_iter`` to the end of
+    ``end_iter``, after a ``torch.cuda.synchronize()``, written as
+    ``<logdir>/trace_rank<rank>.json`` (Chrome's trace format); the
+    counterpart of ``edvr_tpu/train.py:179-212``."""
+
+    def __init__(self, opt):
+        profile_opt = (opt.get('logger') or {}).get('profile') or {}
+        self.start = profile_opt.get('start_iter')
+        self.end = profile_opt.get('end_iter')
+        self.logdir = profile_opt.get('logdir') or osp.join(
+            opt['path']['log'], 'profile')
+        self.cuda = torch.device(opt.get('device') or 'cuda').type == 'cuda'
+        self.rank = opt['rank']
+        self.profiler = None
+        self.trace = None
+
+    def before(self, current_iter, logger):
+        if self.start is None or current_iter != self.start:
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.cuda:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.profiler = torch.profiler.profile(activities=activities)
+        self.profiler.start()
+        logger.info(f'Started profiler trace -> {self.logdir}')
+
+    def after(self, current_iter, logger, force=False):
+        if self.profiler is None or not (force or current_iter == self.end):
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.profiler.stop()
+        os.makedirs(self.logdir, exist_ok=True)
+        self.trace = osp.join(self.logdir, f'trace_rank{self.rank}.json')
+        self.profiler.export_chrome_trace(self.trace)
+        self.profiler = None
+        logger.info(f'Stopped profiler trace: {self.trace}')
+
+
 def main(args=None):
     opt = parse_options(is_train=True, args=args)
     cudnn_env = use_train_cudnn_policy(opt)
@@ -180,7 +237,10 @@ def main(args=None):
         make_exp_dirs(opt)
     else:
         check_resume(opt, resume_state['iter'])
-    logger = init_loggers(opt)
+    if opt['dist']:
+        # rank 0 has made (or archived) the run's directories
+        torch.distributed.barrier()
+    logger, tb_logger = init_loggers(opt)
     logger.info(f'cuDNN algorithm choice: '
                 f'{cudnn_env or "PyTorch default"}')
 
@@ -198,8 +258,9 @@ def main(args=None):
         start_epoch = 0
         current_iter = 0
 
-    msg_logger = MessageLogger(opt, current_iter + 1)
+    msg_logger = MessageLogger(opt, current_iter + 1, tb_logger)
     prefetcher = create_prefetcher(opt, train_loader)
+    profile = ProfileWindow(opt)
     logger.info(f'Prefetcher: {prefetcher.__class__.__name__}')
     val_opt = opt.get('val')
 
@@ -217,8 +278,10 @@ def main(args=None):
             current_iter += 1
             if current_iter > total_iters:
                 break
+            profile.before(current_iter, logger)
             model.feed_data(train_data)
             model.optimize_parameters(current_iter)
+            profile.after(current_iter, logger)
             iter_time = time.time() - iter_time
 
             if current_iter % opt['logger']['print_freq'] == 0:
@@ -232,20 +295,23 @@ def main(args=None):
                 logger.info('Saving models and training states.')
                 model.save(epoch, current_iter)
             if val_opt is not None and current_iter % val_opt['val_freq'] == 0:
-                model.validation(val_loader, current_iter, None,
+                model.validation(val_loader, current_iter, tb_logger,
                                  val_opt.get('save_img', False))
             data_time = time.time()
             iter_time = time.time()
             train_data = prefetcher.next()
         epoch += 1
 
+    profile.after(current_iter, logger, force=True)  # a window cut short
     consumed = str(datetime.timedelta(seconds=int(time.time() - start_time)))
     logger.info(f'End of training. Time consumed: {consumed}')
     logger.info('Save the latest model.')
     model.save(epoch=-1, current_iter=-1)  # -1 -> 'latest'
     if val_opt is not None and val_loader is not None:
-        model.validation(val_loader, current_iter, None,
+        model.validation(val_loader, current_iter, tb_logger,
                          val_opt.get('save_img', False))
+    if tb_logger is not None:
+        tb_logger.close()
     return model
 
 

@@ -1,5 +1,5 @@
 """Run bookkeeping helpers (reference: basicsr/utils/misc.py), copied from
-``edvr_tpu/utils/misc.py`` without its process-rank machinery."""
+``edvr_tpu/utils/misc.py``; the experiment directories are rank 0's."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import time
 
 import numpy as np
 import torch
+
+from edvr_tpu_torch.parallel.dist_util import master_only
 
 
 def set_random_seed(seed: int) -> None:
@@ -40,8 +42,10 @@ _NON_DIR_PATH_KEYS = ('strict_load', 'pretrain_network', 'resume',
                       'param_key')
 
 
+@master_only
 def make_exp_dirs(opt) -> None:
-    """Create the experiment (train) / results (test) directory tree."""
+    """Create the experiment (train) / results (test) directory tree (rank
+    0 only)."""
     paths = dict(opt['path'])
     root_key = 'experiments_root' if opt['is_train'] else 'results_root'
     mkdir_and_rename(paths.pop(root_key))
